@@ -1,0 +1,217 @@
+"""Sampling CLI — the reference test_ddgan.py, on the GPU.
+
+Counterpart of `ddgan_tpu/cli/test_cli.py`. Run as
+
+    python -m ddgan_torch.cli.test_cli --dataset cifar10 --exp exp1 --epoch_id 1
+
+from the directory that holds `saved_info/`; `--device cpu` (or
+`DDGAN_TORCH_DEVICE=cpu`) runs it off the GPU. The protocol
+(test_ddgan.py:128-250):
+
+  * recover the training args from the experiment's content_args.json
+    (the JAX package's plain JSON) or a reference content.pth, overridden
+    by the command line;
+  * load netG_{epoch_id}.pth (reference format, `module.` prefixes
+    stripped) into the generator;
+  * run the T-step reverse sampler with a fresh z per step and write PNGs
+    (or one NPY) to {generated_samples_dir}/generated_samples/{dataset}.
+
+`generate_samples` is the pipelined batch loop that makes an FID set.
+`--compute_fid` needs the Inception port and is refused up front.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..compat import load_netg_pth
+from ..config import Config
+from ..diffusion import PosteriorCoefficients, sample_from_model
+from ..models import NCSNpp
+from ..utils import save_image, to_range_0_1
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="DDGAN Testing Parameters")
+    p.add_argument("--seed", type=int, default=1024)
+    p.add_argument("--normalize", default=False)
+    p.add_argument("--compute_fid", action="store_true")
+    p.add_argument("--epoch_id", type=int, default=109)
+    p.add_argument("--real_img_dir", default="./real_images")
+    p.add_argument("--fid_output_path", default="./fid_score.txt")
+    p.add_argument("--dataset", default="luna16")
+    p.add_argument("--exp", default="exp1")
+    p.add_argument("--num_fid_samples", type=int, default=5000)
+    p.add_argument("--save_npy", action="store_true")
+    p.add_argument("--generated_samples_dir", type=str, default=".")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; also $DDGAN_TORCH_DEVICE")
+    return p
+
+
+def load_config(exp_path: Path, args: argparse.Namespace) -> Config:
+    """Training args of the experiment, overridden by the command line."""
+    if (exp_path / "content_args.json").exists():
+        with open(exp_path / "content_args.json") as f:
+            saved = json.load(f)
+    elif (exp_path / "content.pth").exists():
+        content_args = torch.load(exp_path / "content.pth", map_location="cpu",
+                                  weights_only=False)["args"]
+        saved = dict(content_args) if isinstance(content_args, dict) else dict(vars(content_args))
+    else:
+        raise FileNotFoundError(f"No training content found under {exp_path}")
+    saved.update({k: v for k, v in vars(args).items() if v is not None})
+    return Config.from_dict(saved)
+
+
+def load_generator(exp_path: Path, cfg: Config, epoch_id: int, device: torch.device) -> NCSNpp:
+    """NCSNpp with the weights of netG_{epoch_id}.pth, in eval mode on `device`."""
+    pth = exp_path / f"netG_{epoch_id}.pth"
+    if not pth.exists():
+        if (exp_path / f"netG_{epoch_id}.ckpt").exists():
+            raise FileNotFoundError(
+                f"{exp_path / f'netG_{epoch_id}.ckpt'} is a JAX (flax msgpack) checkpoint; "
+                "the port reads reference-format .pth only until the checkpoint converter "
+                "lands (ROADMAP.md Queue 1 item 8). Export it with "
+                "ddgan_tpu.compat.save_torch_netg to netG_{epoch_id}.pth."
+            )
+        raise FileNotFoundError(f"Checkpoint netG_{epoch_id} not found in {exp_path}")
+    net = NCSNpp.from_config(cfg)
+    net.load_state_dict(load_netg_pth(str(pth)), strict=True)
+    return net.to(device).eval()
+
+
+def make_sampler(cfg: Config, net: NCSNpp, batch: int, device: torch.device,
+                 rng: torch.Generator) -> Callable[[], torch.Tensor]:
+    """() -> one batch of samples in [-1, 1], (batch, C, H, W) on `device`."""
+    pos_coeff = PosteriorCoefficients.create(
+        cfg.num_timesteps, cfg.beta_min, cfg.beta_max, cfg.use_geometric, device=device
+    )
+    shape = (batch, cfg.num_channels, cfg.image_size, cfg.image_size)
+
+    def sample() -> torch.Tensor:
+        x_init = torch.randn(shape, generator=rng, device=device)
+        return sample_from_model(pos_coeff, net, cfg.num_timesteps, x_init, cfg.nz, rng)
+
+    return sample
+
+
+def _to_host_async(x: torch.Tensor):
+    """Start the copy of `x` to the host; (host tensor, event or None)."""
+    if x.device.type != "cuda":
+        return x, None
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    host.copy_(x, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def generate_samples(
+    sample_batch: Callable[[], torch.Tensor],
+    total: int,
+    per_call: int,
+    save_dir: str | Path,
+    *,
+    save_npy: bool = False,
+    normalize: bool = False,
+    tag: str = "",
+) -> int:
+    """Write `total` samples as {i}.png (and {i}.npy) under `save_dir`.
+
+    Pipelined as the JAX package's FID loop (`ddgan_tpu/cli/test_cli.py:131-196`):
+    batch k+1 is launched before batch k is handed to the encoders, whose
+    copy to the host was queued right behind batch k; PNG/NPY encoding runs
+    in two worker threads behind a bounded queue of 4 batches. Returns the
+    number of samples written.
+    """
+    save_dir = Path(save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    iters_needed = (total + per_call - 1) // per_call
+
+    def encode_batch(host_arr: np.ndarray, index0: int) -> None:
+        for j, x in enumerate(host_arr):
+            if save_npy:
+                np.save(save_dir / f"{index0 + j}.npy", x.transpose(2, 0, 1))
+            save_image(x, save_dir / f"{index0 + j}.png", normalize=normalize)
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    encode_futs: deque = deque()
+
+    def submit_encode(batch) -> None:
+        # each queued batch pins a full host copy: bound the window
+        while len(encode_futs) >= 4:
+            encode_futs.popleft().result()  # propagate encode errors
+        host, ready, n_keep, index0 = batch
+        if ready is not None:
+            ready.synchronize()
+        arr = host[:n_keep].permute(0, 2, 3, 1).float().numpy()
+        encode_futs.append(pool.submit(encode_batch, arr, index0))
+
+    try:
+        pending = None
+        index = 0
+        for i in range(iters_needed):
+            n = min(per_call, total - i * per_call)
+            host, ready = _to_host_async(to_range_0_1(sample_batch()))
+            if pending is not None:
+                submit_encode(pending)
+            pending = (host, ready, n, index)
+            index += n
+            if (i + 1) % max(1, iters_needed // 2) == 0:
+                print(f"Generated {index}/{total} samples{' for ' + tag if tag else ''}")
+        if pending is not None:
+            submit_encode(pending)
+        for f in encode_futs:
+            f.result()
+    finally:
+        # no worker keeps writing after an exception surfaces
+        pool.shutdown(wait=True, cancel_futures=True)
+    return index
+
+
+def sample_and_test(args: argparse.Namespace):
+    if args.compute_fid:
+        raise NotImplementedError(
+            "--compute_fid needs the Inception network, which is not ported yet "
+            "(ROADMAP.md Queue 1 item 6, evaluation). Generate without it, or score "
+            "with the JAX package's test_ddgan.py."
+        )
+    device = resolve_device(args.device)
+    exp_path = Path(f"./saved_info/dd_gan/{args.dataset}/{args.exp}")
+    cfg = load_config(exp_path, args)
+    net = load_generator(exp_path, cfg, int(args.epoch_id), device)
+    batch_size = int(args.batch_size or cfg.batch_size)
+    rng = torch.Generator(device=device).manual_seed(int(args.seed))
+    sample = make_sampler(cfg, net, batch_size, device, rng)
+
+    save_dir = Path(args.generated_samples_dir) / "generated_samples" / str(args.dataset)
+    save_dir.mkdir(parents=True, exist_ok=True)
+    fake = to_range_0_1(sample()).permute(0, 2, 3, 1).float().cpu().numpy()
+    if args.save_npy:
+        np.save("file.npy", fake.transpose(0, 3, 1, 2))
+        print("file.npy")
+    else:
+        for i, x in enumerate(fake):
+            save_image(x, save_dir / f"sample_{i}.png", normalize=bool(args.normalize))
+        print(f"Sample images saved to {save_dir}")
+    return None
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return sample_and_test(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,119 @@
+"""Package rules of the port (`ddgan_torch`): it never imports JAX or the
+JAX package, its entry points run on the GPU unless the CPU is asked for,
+its config schema is the JAX package's, and `chip_smoke.py` fails rather
+than reporting a result when it has no GPU or no checkout around it.
+"""
+
+import ast
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from ddgan_tpu.config import Config as JConfig
+
+from ddgan_torch import _device
+from ddgan_torch.cli import test_cli
+from ddgan_torch.config import Config
+from ddgan_torch.diffusion import schedules
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "ddgan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_sources_import_no_jax():
+    sources = _port_sources()
+    assert len(sources) > 15
+    bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
+           for p in sources}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_importing_every_module_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys, ddgan_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(ddgan_torch.__path__, 'ddgan_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert int(res.stdout.split()[0]) >= 15
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv(_device.ENV_VAR, raising=False)
+
+
+def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for(no_gpu, monkeypatch, tmp_path):
+    with pytest.raises(RuntimeError, match=_device.ENV_VAR):
+        _device.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schedules.PosteriorCoefficients.create(4, 0.1, 20.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        schedules.get_time_schedule(4)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        test_cli.main(["--dataset", "cifar10", "--exp", "none"])
+
+    assert _device.resolve_device("cpu") == torch.device("cpu")
+    assert schedules.get_time_schedule(4, device="cpu").device.type == "cpu"
+    monkeypatch.setenv(_device.ENV_VAR, "cpu")
+    assert _device.resolve_device() == torch.device("cpu")
+    assert schedules.PosteriorCoefficients.create(4, 0.1, 20.0).betas.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="unsupported"):
+        _device.resolve_device("meta")
+
+
+def test_config_schema_is_the_jax_packages():
+    def schema(cls):
+        return [(f.name, f.default if f.default is not dataclasses.MISSING
+                 else f.default_factory()) for f in dataclasses.fields(cls)]
+
+    assert len(schema(Config)) == 86
+    assert schema(Config) == schema(JConfig)
+    extra = Config.from_dict({"image_size": 32, "not_a_key": 3})
+    assert extra.image_size == 32 and extra.not_a_key == 3
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_a_gpu_or_a_checkout(where, tmp_path):
+    if where == "alone":
+        shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        if torch.cuda.is_available():
+            pytest.skip("a GPU is present: chip_smoke.py runs for real here")
+        script, cwd = ROOT / "chip_smoke.py", ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout

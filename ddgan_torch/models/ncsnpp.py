@@ -6,10 +6,13 @@ one flat `all_modules` list built in the reference's order, and the latent
 map is the Sequential `z_transform`, so the state_dict keys are the
 reference's (`all_modules.{i}.…`, `z_transform.{2j+1}.…`).
 
-This port covers the configuration of the flagship recipe: BigGAN
-resblocks, no output pyramid, a residual input pyramid, positional time
-embedding, FIR resampling, time conditioning and the tanh head. Any other
-option raises NotImplementedError naming the ROADMAP item that ports it.
+This port covers the block options that the flagship CIFAR-10 recipe and
+the CelebA-HQ 256 recipe share: BigGAN resblocks, no output pyramid, a
+residual input pyramid, positional time embedding, FIR resampling, time
+conditioning and the tanh head, at any width, ch_mult, depth and image
+size. Any other option raises NotImplementedError naming the ROADMAP item
+that ports it. In bf16, the 3x3 convs of the 128² and 256² levels with 64
+output channels run the gated conv kernel (`ops/pair_conv.py`).
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """Shared primitives: initializers, dense/conv layers, embeddings (NCHW).
 
-Counterpart of `ddgan_tpu/nn/layers.py`, plain forms only (its width-s2d
-and paired-pixel paths are TPU layouts of the same math). Parameter names
-and shapes are the reference torch model's, so `load_state_dict` takes a
-reference `.pth`:
+Counterpart of `ddgan_tpu/nn/layers.py`. Its width-s2d path is a TPU
+layout of the same math and is not ported. Its paired-pixel path is the
+Pallas kernel `pair_conv3x3`: `Conv3x3` sends the convs that pass its gate
+to the port's kernel (`ops/pair_conv.py`). Parameter names and shapes are
+the reference torch model's, so `load_state_dict` takes a reference `.pth`:
 
   * `default_init` — variance_scaling(fan_avg, uniform), scale 0 mapped
     to 1e-10 (score_sde/models/layers.py:101-105).
@@ -24,6 +25,8 @@ from typing import Callable
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops import pair_conv
 
 # init(tensor, fan_in, fan_out, generator) fills `tensor` in place
 Initializer = Callable[[torch.Tensor, int, int, "torch.Generator | None"], torch.Tensor]
@@ -130,12 +133,31 @@ class Conv2d(nn.Module):
 
 
 class Conv3x3(Conv2d):
-    """ddpm_conv3x3: 3x3 conv, default_init(init_scale), zero bias. (layers.py:131-138)"""
+    """ddpm_conv3x3: 3x3 conv, default_init(init_scale), zero bias. (layers.py:131-138)
+
+    A bf16 conv with stride, padding and dilation 1 and a bias whose shapes
+    pass `pair_conv.supported` (C_out 64 on the 128² and 256² maps) runs
+    `pair_conv.pair_conv3x3`, the hand-written kernel on the GPU: the JAX
+    package's path under DDGAN_TPU_PALLAS_CONV=1 (`ddgan_tpu/nn/layers.py:285-302`).
+    Every other conv is `F.conv2d`.
+    """
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, use_bias: bool = True,
                  dilation: int = 1, init_scale: float = 1.0, padding: int = 1, dtype=None):
         super().__init__(in_ch, out_ch, 3, stride, padding, dilation, use_bias,
                          default_init(init_scale), dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (
+            self.dtype == torch.bfloat16
+            and self.stride == 1
+            and self.padding == 1
+            and self.dilation == 1
+            and self.bias is not None
+            and pair_conv.supported(x.shape, self.weight.shape, torch.bfloat16)
+        ):
+            return pair_conv.pair_conv3x3(x.to(torch.bfloat16), self.weight, self.bias)
+        return super().forward(x)
 
 
 class Conv1x1(Conv2d):

@@ -13,40 +13,19 @@ plain version on a CPU tensor; any other input raises. The kernel is
 forward only: it raises if its input needs a gradient.
 
 The kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C interface, at first use, into `ddgan_torch/_build/`, and loaded
-with ctypes. The library's name carries a hash of the source and the
-flags, so an edited source is rebuilt. A build or launch failure raises;
-there is no fallback.
+plain C interface, at first use, and loaded with ctypes (`_nvcc.build`).
+A build or launch failure raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from . import _nvcc
 from .upfirdn2d import upfirdn2d_ref
-
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "fir2x.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = [
-    "-O3",
-    "-std=c++17",
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-    "-Xptxas",
-    "-v",
-]
 
 # Launches of each kernel since the last reset; a run reads these to show
 # that its path went through the kernels.
@@ -79,37 +58,12 @@ def up2x_ref(x: torch.Tensor, k1d) -> torch.Tensor:
 
 # --------------------------------------------------------------------------
 # build and bind
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"), "/usr/local/cuda"):
-        if root and Path(root, "bin", "nvcc").exists():
-            return str(Path(root, "bin", "nvcc"))
-    raise RuntimeError("nvcc not found: the fir2x kernel needs the CUDA toolkit to build")
-
-
 def build(verbose: bool = False) -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library. With `verbose`, a
-    compile prints what ptxas reports (registers, shared memory, spills)."""
+    """Compile (if needed) and load the kernel library (`_nvcc.build`)."""
     global _lib
     if _lib is not None:
         return _lib
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libfir2x_{digest}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}) building {SOURCE}:\n{res.stderr}"
-            )
-        if verbose:
-            print(res.stderr.strip())
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _nvcc.build("fir2x.cu", verbose)
     fn = lib.ddgan_fir2x
     fn.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,

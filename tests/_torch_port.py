@@ -43,3 +43,53 @@ def tiny_config(**overrides):
     from __graft_entry__ import _flagship_config
 
     return _flagship_config(tiny=True).replace(**overrides)
+
+
+def celeba256_config(tiny: bool = False, **overrides):
+    """The CelebA-HQ 256 paper recipe of `tools/bench_extra.py:105-113` (nf 64,
+    ch_mult 1 1 2 2 4 4, 2 BigGAN resblocks, attention at 16, n_mlp 3, T=2,
+    bf16). `tiny`: the same six levels at image 64, nf 16, f32."""
+    from ddgan_tpu.config import Config
+
+    cfg = Config(
+        dataset="celeba_256", image_size=256, num_channels=3,
+        num_channels_dae=64, ch_mult=[1, 1, 2, 2, 4, 4], num_res_blocks=2,
+        attn_resolutions=[16], nz=100, z_emb_dim=256, n_mlp=3,
+        t_emb_dim=256, ngf=64, num_timesteps=2, batch_size=16,
+        dropout=0.0, compute_dtype="bfloat16",
+    )
+    if tiny:
+        cfg = cfg.replace(image_size=64, num_channels_dae=16, nz=16, z_emb_dim=32,
+                          batch_size=4, compute_dtype="float32")
+    return cfg.replace(**overrides)
+
+
+def count_pallas_calls(jaxpr) -> int:
+    """pallas_call equations in a jaxpr and all its sub-jaxprs."""
+    n = 0
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "pallas_call":
+            n += 1
+        for v in eqn.params.values():
+            for sub in v if isinstance(v, (list, tuple)) else (v,):
+                sub = getattr(sub, "jaxpr", sub)  # a ClosedJaxpr holds its Jaxpr
+                if hasattr(sub, "eqns"):
+                    n += count_pallas_calls(sub)
+    return n
+
+
+def count_routed(monkeypatch) -> list:
+    """Record the input shape of each call of `pair_conv.pair_conv3x3`, the
+    route `Conv3x3` takes for a gated conv (on the CPU it runs the plain
+    version, so the kernel's launch count cannot show it)."""
+    from ddgan_torch.ops import pair_conv
+
+    calls = []
+    inner = pair_conv.pair_conv3x3
+
+    def counting(x, w, b):
+        calls.append(tuple(x.shape))
+        return inner(x, w, b)
+
+    monkeypatch.setattr(pair_conv, "pair_conv3x3", counting)
+    return calls

@@ -1,10 +1,15 @@
 """The port's NCSN++ generator against the JAX package, at the tiny shape
 of the flagship recipe (`_flagship_config(tiny=True)`: image 16, nf 16,
-ch_mult [1,2], 1 resblock, attention at 8).
+ch_mult [1,2], 1 resblock, attention at 8) and at the six levels of the
+CelebA-HQ 256 recipe cut to image 64 and nf 16; the bf16 route through
+the gated 3x3 conv (K2) at 128x128; and the full-width CelebA-HQ 256
+parameter tree, by shape only.
 
 Weights are non-trivial (`randomize_parameters_`), guarded by the std of
 the output; the DDPM init would make the output ~0 and the comparison
-vacuous. f32 tolerance atol 1e-4 over the whole network.
+vacuous. f32 tolerance atol 1e-4 over the whole network; bf16 against the
+JAX package's bf16 with its Pallas conv, max-abs 0.03 (the bound of
+`test_bf16_close_to_f32`).
 """
 
 import jax
@@ -21,9 +26,33 @@ from ddgan_torch.models import NCSNpp, get_model
 from ddgan_torch.ops import fir2x
 from ddgan_torch.utils import randomize_parameters_
 
-from _torch_port import flax_params_from_port, nchw, nhwc, randn, tiny_config
+from _torch_port import (
+    celeba256_config,
+    count_pallas_calls,
+    count_routed,
+    flax_params_from_port,
+    nchw,
+    nhwc,
+    randn,
+    tiny_config,
+)
 
 B = 4
+
+
+def _jax_shapes(gen, cfg):
+    """The JAX generator's variables as ShapeDtypeStructs (no init run)."""
+    k = jax.random.PRNGKey(0)
+    return jax.eval_shape(lambda: gen.init(
+        {"params": k, "dropout": k},
+        jnp.zeros((1, cfg.image_size, cfg.image_size, cfg.num_channels)),
+        jnp.zeros((1,), jnp.int32), jnp.zeros((1, cfg.nz)),
+    ))
+
+
+def _jax_template(gen, cfg):
+    """A zero-filled variables tree: the port's weights fill it."""
+    return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), _jax_shapes(gen, cfg))
 
 
 @pytest.fixture(scope="module")
@@ -34,13 +63,7 @@ def cfg():
 @pytest.fixture(scope="module")
 def jax_model(cfg):
     gen = JNCSNpp.from_config(cfg)
-    k = jax.random.PRNGKey(0)
-    template = gen.init(
-        {"params": k, "dropout": k},
-        jnp.zeros((1, cfg.image_size, cfg.image_size, cfg.num_channels)),
-        jnp.zeros((1,), jnp.int32), jnp.zeros((1, cfg.nz)),
-    )
-    return gen, template
+    return gen, _jax_template(gen, cfg)
 
 
 @pytest.fixture(scope="module")
@@ -66,8 +89,8 @@ def test_generator_matches_jax(cfg, jax_model, inputs):
     net = _port(cfg)
     params = flax_params_from_port(net, template)
     x, t, z = inputs
-    want = np.asarray(gen.apply({"params": params}, jnp.asarray(x), jnp.asarray(t),
-                                jnp.asarray(z), train=False))
+    apply = jax.jit(lambda p, x_, t_, z_: gen.apply({"params": p}, x_, t_, z_, train=False))
+    want = np.asarray(apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(z)))
     assert np.std(want) > 0.05, "weights are trivial: the comparison would be vacuous"
     fir2x.reset_launch_counts()
     got = _run(net, x, t, z)
@@ -91,7 +114,9 @@ def test_bf16_close_to_f32(cfg, inputs):
 
 def test_state_dict_from_flax_equals_export(cfg, jax_model):
     _, template = jax_model
-    params = jax.tree.map(np.asarray, template["params"])
+    rng = np.random.RandomState(5)  # distinct values, so a wrong transpose shows
+    params = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(np.float32),
+                          template["params"])
     ours = state_dict_from_flax(params)
     theirs = export_torch_state_dict(params)
     assert set(ours) == set(theirs)
@@ -123,3 +148,68 @@ def test_init_is_drawn_from_the_generator(cfg):
     b = NCSNpp.from_config(cfg, generator=torch.Generator().manual_seed(3))
     for (ka, va), (_, vb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(va, vb), ka
+
+
+def test_six_level_generator_matches_jax():
+    """The CelebA-HQ 256 structure (six levels, 2 resblocks, attention at
+    16, n_mlp 3) at image 64, nf 16, in f32."""
+    cfg = celeba256_config(tiny=True)
+    gen = JNCSNpp.from_config(cfg)
+    net = _port(cfg, seed=1)
+    params = flax_params_from_port(net, _jax_template(gen, cfg))
+    b, s = 2, cfg.image_size
+    x, t, z = randn(12, b, s, s, 3), np.array([0, 1], np.int32), randn(13, b, cfg.nz)
+    apply = jax.jit(lambda p, x_, t_, z_: gen.apply({"params": p}, x_, t_, z_, train=False))
+    want = np.asarray(apply(params, jnp.asarray(x), jnp.asarray(t), jnp.asarray(z)))
+    assert np.std(want) > 0.05, "weights are trivial: the comparison would be vacuous"
+    got = _run(net, x, t, z)
+    assert got.shape == (b, 3, s, s)
+    np.testing.assert_allclose(nhwc(got), want, rtol=0, atol=1e-4)
+
+
+def test_bf16_gated_convs_match_jax_pallas(monkeypatch):
+    """Image 128, nf 64, ch_mult [1, 2], 1 resblock, bf16: the 128x128 level
+    passes the K2 gate. The JAX package runs its Pallas conv
+    (DDGAN_TPU_PALLAS_CONV=1, s2d closure off, interpret mode on the CPU);
+    the port routes the same convs to `pair_conv3x3` (its plain version on
+    the CPU)."""
+    monkeypatch.setenv("DDGAN_TPU_PALLAS_CONV", "1")
+    monkeypatch.setenv("DDGAN_TPU_S2D_CONV", "0")
+    cfg = tiny_config(image_size=128, num_channels_dae=64, ch_mult=[1, 2],
+                      num_res_blocks=1, compute_dtype="bfloat16")
+    gen = JNCSNpp.from_config(cfg)
+    net = _port(cfg, seed=2)
+    params = flax_params_from_port(net, _jax_template(gen, cfg))
+    x, t, z = randn(14, 1, 128, 128, 3), np.array([1], np.int32), randn(15, 1, cfg.nz)
+    args = (jnp.asarray(x), jnp.asarray(t), jnp.asarray(z))
+
+    def apply(p, x_, t_, z_):
+        return gen.apply({"params": p}, x_, t_, z_, train=False)
+
+    n_pallas = count_pallas_calls(jax.make_jaxpr(apply)(params, *args).jaxpr)
+    want = np.asarray(jax.jit(apply)(params, *args))
+    calls = count_routed(monkeypatch)
+    got = _run(net, x, t, z)
+    # conv 0/1 of the 128² down block, conv 1 of the first up block (C_in
+    # 192 fails the gate) and conv 0/1 of the second
+    assert len(calls) == n_pallas == 5
+    assert np.std(want) > 0.05
+    assert float(np.abs(nhwc(got) - want).max()) < 0.03
+
+
+def test_celeba256_parameter_tree_matches_jax():
+    """The full-width CelebA-HQ 256 generator, by shape: `jax.eval_shape` of
+    the JAX package's init against the port's state_dict (on the meta
+    device), through `state_dict_from_flax`."""
+    cfg = celeba256_config()
+    gen = JNCSNpp.from_config(cfg)
+    shapes = _jax_shapes(gen, cfg)["params"]
+    zeros = jax.tree.map(lambda a: np.broadcast_to(np.zeros((), np.float32), a.shape), shapes)
+    theirs = state_dict_from_flax(zeros)
+    with torch.device("meta"):
+        net = NCSNpp.from_config(cfg)
+    ours = net.state_dict()
+    assert {k: tuple(v.shape) for k, v in ours.items()} == {
+        k: tuple(v.shape) for k, v in theirs.items()}
+    n_jax = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(shapes))
+    assert sum(p.numel() for p in net.parameters()) == n_jax == 39_726_979

@@ -1,10 +1,11 @@
-"""The port's T=4 sampling path against the JAX package: schedules, the
-posterior step, the whole reverse sampler on the tiny flagship-shaped
-generator with injected noise, and the sampler CLI on the CPU.
+"""The port's sampling path against the JAX package: schedules, the
+posterior step, the whole reverse sampler with injected noise on the tiny
+flagship-shaped generator (T=4) and on the six levels of the CelebA-HQ 256
+recipe cut to image 64 and nf 16 (T=2), and the sampler CLI on the CPU.
 
 The sampler is compared with the JAX package's generator and
 `sample_posterior_with_noise` looped over the same x_init, z's and noises
-(atol 1e-4 over 4 generator calls, f32).
+(atol 1e-4 over T generator calls, f32).
 """
 
 import json
@@ -25,7 +26,7 @@ from ddgan_torch.diffusion import schedules
 from ddgan_torch.models import NCSNpp
 from ddgan_torch.utils import encode_png, randomize_parameters_, save_image
 
-from _torch_port import flax_params_from_port, nchw, nhwc, randn, tiny_config
+from _torch_port import celeba256_config, flax_params_from_port, nchw, nhwc, randn, tiny_config
 
 CPU = "cpu"
 T = 4
@@ -73,41 +74,91 @@ def test_posterior_step_matches_jax():
         rtol=1e-6, atol=1e-6)
 
 
+def _jax_template(gen, cfg):
+    """The JAX generator's variables, zero-filled from `jax.eval_shape` of
+    its init (running the init op by op takes tens of seconds): the port's
+    weights fill it."""
+    k = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: gen.init(
+        {"params": k, "dropout": k},
+        jnp.zeros((1, cfg.image_size, cfg.image_size, cfg.num_channels)),
+        jnp.zeros((1,), jnp.int32), jnp.zeros((1, cfg.nz))))
+    return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     """(cfg, port generator with non-trivial weights, JAX generator, its params)."""
     cfg = tiny_config()
     net = randomize_parameters_(NCSNpp.from_config(cfg), 0).eval()
     gen = JNCSNpp.from_config(cfg)
-    k = jax.random.PRNGKey(0)
-    template = gen.init({"params": k, "dropout": k},
-                        jnp.zeros((1, cfg.image_size, cfg.image_size, cfg.num_channels)),
-                        jnp.zeros((1,), jnp.int32), jnp.zeros((1, cfg.nz)))
-    return cfg, net, gen, flax_params_from_port(net, template)
+    return cfg, net, gen, flax_params_from_port(net, _jax_template(gen, cfg))
+
+
+def _sampler_parity(cfg, net, gen, params, b, seed):
+    """The port's reverse sampler and the JAX package's, on the same
+    x_init, z's and noises; (port, JAX, x_init) in NHWC."""
+    steps, s, c = cfg.num_timesteps, cfg.image_size, cfg.num_channels
+    x_init = randn(seed, b, s, s, c)
+    zs = [randn(seed + 10 + i, b, cfg.nz) for i in range(steps)]
+    noises = [randn(seed + 20 + i, b, s, s, c) for i in range(steps)]
+
+    jcoeff = jsched.PosteriorCoefficients.create(steps, cfg.beta_min, cfg.beta_max)
+    apply = jax.jit(lambda x, t, z: gen.apply({"params": params}, x, t, z, train=False))
+    x = jnp.asarray(x_init)
+    for step, i in enumerate(range(steps - 1, -1, -1)):
+        t = jnp.full((b,), i, jnp.int32)
+        x = jsched.sample_posterior_with_noise(
+            jcoeff, apply(x, t, jnp.asarray(zs[step])), x, t, jnp.asarray(noises[step]))
+
+    coeff = schedules.PosteriorCoefficients.create(steps, cfg.beta_min, cfg.beta_max, device=CPU)
+    got = schedules.sample_from_model_with_noise(
+        coeff, net, steps, nchw(x_init), [torch.from_numpy(z) for z in zs],
+        [nchw(n) for n in noises])
+    return nhwc(got), np.asarray(x), x_init
 
 
 def test_t4_sampler_matches_jax(tiny):
     cfg, net, gen, params = tiny
-    b, s, c = 4, cfg.image_size, cfg.num_channels
-    x_init = randn(20, b, s, s, c)
-    zs = [randn(30 + i, b, cfg.nz) for i in range(T)]
-    noises = [randn(40 + i, b, s, s, c) for i in range(T)]
-
-    jcoeff = jsched.PosteriorCoefficients.create(T, cfg.beta_min, cfg.beta_max)
-    apply = jax.jit(lambda x, t, z: gen.apply({"params": params}, x, t, z, train=False))
-    x = jnp.asarray(x_init)
-    for step, i in enumerate(range(T - 1, -1, -1)):
-        t = jnp.full((b,), i, jnp.int32)
-        x = jsched.sample_posterior_with_noise(
-            jcoeff, apply(x, t, jnp.asarray(zs[step])), x, t, jnp.asarray(noises[step]))
-    want = np.asarray(x)
-
-    coeff = schedules.PosteriorCoefficients.create(T, cfg.beta_min, cfg.beta_max, device=CPU)
-    got = schedules.sample_from_model_with_noise(
-        coeff, net, T, nchw(x_init), [torch.from_numpy(z) for z in zs],
-        [nchw(n) for n in noises])
+    got, want, x_init = _sampler_parity(cfg, net, gen, params, b=4, seed=20)
     assert np.std(want - x_init) > 0.05  # the generator moved the samples
-    np.testing.assert_allclose(nhwc(got), want, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def six_level():
+    """(cfg, port generator, JAX generator, its params) at the CelebA-HQ 256
+    structure cut to image 64, nf 16."""
+    cfg = celeba256_config(tiny=True)
+    net = randomize_parameters_(NCSNpp.from_config(cfg), 3).eval()
+    gen = JNCSNpp.from_config(cfg)
+    return cfg, net, gen, flax_params_from_port(net, _jax_template(gen, cfg))
+
+
+def test_t2_six_level_sampler_matches_jax(six_level):
+    cfg, net, gen, params = six_level
+    assert cfg.num_timesteps == 2 and len(cfg.ch_mult) == 6
+    got, want, x_init = _sampler_parity(cfg, net, gen, params, b=2, seed=50)
+    assert np.std(want - x_init) > 0.05
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+
+
+def test_cli_samples_a_celeba256_experiment_on_cpu(tmp_path, monkeypatch, six_level):
+    """The sampler CLI on an experiment saved with the CelebA-HQ 256
+    recipe's structure (dataset celeba_256, T=2, six levels; image 64)."""
+    cfg, _, _, params = six_level
+    exp = tmp_path / "saved_info" / "dd_gan" / "celeba_256" / "tiny256"
+    exp.mkdir(parents=True)
+    (exp / "content_args.json").write_text(
+        json.dumps(cfg.replace(batch_size=2, exp="tiny256").to_dict()))
+    save_torch_netg(str(exp / "netG_3.pth"), jax.tree.map(np.asarray, params))
+    monkeypatch.chdir(tmp_path)
+    test_cli.main(["--dataset", "celeba_256", "--exp", "tiny256", "--epoch_id", "3",
+                   "--device", "cpu", "--seed", "5"])
+    pngs = sorted((tmp_path / "generated_samples" / "celeba_256").glob("sample_*.png"))
+    assert len(pngs) == 2
+    img = np.asarray(Image.open(pngs[0]))
+    assert img.shape == (64, 64, 3) and img.std() > 5
 
 
 def test_sampler_draws_from_its_generator(tiny):

@@ -1,5 +1,6 @@
-"""DDGAN diffusion math, the sampling half: VP / geometric schedules, the
-posterior coefficients and the T-step reverse sampler.
+"""DDGAN diffusion math: VP / geometric schedules, the forward-process
+coefficients and training pairs, the posterior coefficients and the T-step
+reverse sampler.
 
 Counterpart of `ddgan_tpu/diffusion/schedules.py` (reference semantics:
 ddgan.py:36-183). Schedules are computed on the host in float64 and kept
@@ -89,6 +90,82 @@ def extract(coeffs: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-sample coefficients and broadcast over `ndim - 1` trailing dims."""
     out = coeffs[t]
     return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionCoefficients:
+    """Forward-process coefficients (ddgan.py:94-106).
+
+    a_s_cum[i]    = prod_{j<=i} a_s[j]
+    sigmas_cum[i] = sqrt(1 - a_s_cum[i]^2)
+    a_s_prev      = a_s with the last entry replaced by 1.
+    """
+
+    sigmas: torch.Tensor
+    a_s: torch.Tensor
+    a_s_cum: torch.Tensor
+    sigmas_cum: torch.Tensor
+    a_s_prev: torch.Tensor
+
+    @staticmethod
+    def create(
+        num_timesteps: int,
+        beta_min: float,
+        beta_max: float,
+        use_geometric: bool = False,
+        device=None,
+    ) -> "DiffusionCoefficients":
+        dev = resolve_device(device)
+        sigmas, a_s, _ = _sigma_schedule_np(num_timesteps, beta_min, beta_max, use_geometric)
+        a_s_cum = np.cumprod(a_s)
+        sigmas_cum = np.sqrt(1.0 - a_s_cum**2)
+        a_s_prev = a_s.copy()
+        a_s_prev[-1] = 1.0
+        table = dict(sigmas=sigmas, a_s=a_s, a_s_cum=a_s_cum, sigmas_cum=sigmas_cum,
+                     a_s_prev=a_s_prev)
+        return DiffusionCoefficients(
+            **{k: torch.tensor(np.asarray(v, np.float32), device=dev) for k, v in table.items()}
+        )
+
+
+def q_sample(
+    coeff: DiffusionCoefficients,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+) -> torch.Tensor:
+    """Diffuse x_start to time t: a_s_cum[t] * x0 + sigmas_cum[t] * noise. (ddgan.py:109-117)"""
+    nd = x_start.ndim
+    return extract(coeff.a_s_cum, t, nd) * x_start + extract(coeff.sigmas_cum, t, nd) * noise
+
+
+def q_sample_pairs(
+    coeff: DiffusionCoefficients,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    generator: torch.Generator | None,
+):
+    """Training pair (x_t, x_{t+1}); two independent noises, drawn from
+    `generator` in that order. (ddgan.py:120-126)"""
+    noise_q = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                          dtype=x_start.dtype)
+    noise_next = torch.randn(x_start.shape, generator=generator, device=x_start.device,
+                             dtype=x_start.dtype)
+    return q_sample_pairs_with_noise(coeff, x_start, t, noise_q, noise_next)
+
+
+def q_sample_pairs_with_noise(
+    coeff: DiffusionCoefficients,
+    x_start: torch.Tensor,
+    t: torch.Tensor,
+    noise_q: torch.Tensor,
+    noise_next: torch.Tensor,
+):
+    """Pair sampling with externally supplied noise (for parity tests)."""
+    nd = x_start.ndim
+    x_t = q_sample(coeff, x_start, t, noise_q)
+    x_t_plus_one = extract(coeff.a_s, t + 1, nd) * x_t + extract(coeff.sigmas, t + 1, nd) * noise_next
+    return x_t, x_t_plus_one
 
 
 @dataclasses.dataclass(frozen=True)

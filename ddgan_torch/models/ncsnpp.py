@@ -12,7 +12,9 @@ residual input pyramid, positional time embedding, FIR resampling, time
 conditioning and the tanh head, at any width, ch_mult, depth and image
 size. Any other option raises NotImplementedError naming the ROADMAP item
 that ports it. In bf16, the 3x3 convs of the 128² and 256² levels with 64
-output channels run the gated conv kernel (`ops/pair_conv.py`).
+output channels run the gated conv kernel (`ops/pair_conv.py`). In train
+mode the dropout masks come from the generator given to
+`set_dropout_generator` (the train step hands it its own).
 """
 
 from __future__ import annotations
@@ -191,6 +193,13 @@ class NCSNpp(nn.Module):
         for m in self.modules():
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
+
+    def set_dropout_generator(self, generator: torch.Generator | None) -> None:
+        """Draw the dropout masks of train mode from `generator` (on the
+        device the model runs on); None restores torch's default one."""
+        for m in self.modules():
+            if isinstance(m, blocks.Dropout):
+                m.generator = generator
 
     def forward(self, x: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         modules = self.all_modules

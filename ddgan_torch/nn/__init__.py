@@ -12,6 +12,7 @@ from .layers import (  # noqa: F401
     NIN,
     Conv1x1,
     Conv3x3,
+    ConvLayer,
     Dense,
     Linear,
     PixelNorm,

@@ -246,6 +246,25 @@ class Downsample(nn.Module):
         return self.Conv2d_0(x)
 
 
+class Dropout(nn.Module):
+    """Dropout whose masks come from `generator` (None: torch's default
+    generator of the input's device), so two runs seeded alike draw the
+    same masks: in training, keep each value with probability 1 - p and
+    scale it by 1 / (1 - p), as flax's `nn.Dropout`; the identity in eval
+    mode or at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator, device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), 0.0)
+
+
 class _TembProj(Linear):
     """Per-channel bias from the time embedding: Linear(act(temb)),
     default_init weight, zero bias (layerspp.py:263-265)."""
@@ -276,7 +295,7 @@ class ResnetBlockBigGANppAdagn(nn.Module):
         if temb_dim is not None:
             self.Dense_0 = _TembProj(temb_dim, out_ch, dtype=dtype)
         self.GroupNorm_1 = AdaptiveGroupNorm(_num_groups(out_ch), out_ch, zemb_dim, dtype=dtype)
-        self.Dropout_0 = nn.Dropout(dropout)
+        self.Dropout_0 = Dropout(dropout)
         self.Conv_1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
         if in_ch != out_ch or up or down:
             self.Conv_2 = Conv1x1(in_ch, out_ch, dtype=dtype)

@@ -137,9 +137,10 @@ class Conv3x3(Conv2d):
 
     A bf16 conv with stride, padding and dilation 1 and a bias whose shapes
     pass `pair_conv.supported` (C_out 64 on the 128² and 256² maps) runs
-    `pair_conv.pair_conv3x3`, the hand-written kernel on the GPU: the JAX
-    package's path under DDGAN_TPU_PALLAS_CONV=1 (`ddgan_tpu/nn/layers.py:285-302`).
-    Every other conv is `F.conv2d`.
+    `pair_conv.pair_conv3x3` on the live weight and bias, the hand-written
+    kernel on the GPU, with its VJP: the JAX package's path under
+    DDGAN_TPU_PALLAS_CONV=1 (`ddgan_tpu/nn/layers.py:285-302`). Every other
+    conv is `F.conv2d`.
     """
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 1, use_bias: bool = True,
@@ -158,6 +159,17 @@ class Conv3x3(Conv2d):
         ):
             return pair_conv.pair_conv3x3(x.to(torch.bfloat16), self.weight, self.bias)
         return super().forward(x)
+
+
+class ConvLayer(Conv2d):
+    """Conv2d with the reference dense_layer init (dense_layer.py:69-80) and
+    zero bias: the discriminators' conv (`ddgan_tpu/nn/layers.py:99-125`).
+    It never routes to the gated conv kernel, as in the JAX package."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3, stride: int = 1,
+                 padding: int = 1, use_bias: bool = True, init_scale: float = 1.0, dtype=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride, padding, 1, use_bias,
+                         dense_init(init_scale), dtype)
 
 
 class Conv1x1(Conv2d):

@@ -7,10 +7,18 @@ upfirdn2d with the 2-D kernel outer(k1d, k1d), 4 taps, H and W even:
   * down2x: up=1, down=2, pad=(1,1)  (N, C, H, W) -> (N, C, H/2, W/2)
   * up2x:   up=2, down=1, pad=(2,1)  (N, C, H, W) -> (N, C, 2H, 2W)
 
-`down2x_ref` / `up2x_ref` are the plain versions. `down2x` / `up2x` launch
-the hand-written kernel in `csrc/fir2x.cu` on a CUDA tensor and use the
-plain version on a CPU tensor; any other input raises. The kernel is
-forward only: it raises if its input needs a gradient.
+`down2x_ref` / `up2x_ref` are the plain versions. `down2x` / `up2x` are
+`torch.autograd.Function`s on every device; only their innermost call
+differs: the hand-written kernel in `csrc/fir2x.cu` on a CUDA tensor, the
+plain version on a CPU tensor; any other input raises.
+
+Gradients mirror the JAX VJPs (`_down2x_bwd` :142, `_up2x_bwd` :167): the
+VJP of down2x is the up2x pattern with the taps reversed, and the VJP of
+up2x is the down2x pattern with the taps reversed, at the same pads and
+with no extra gain. Each backward applies the other Function, so it is
+differentiable in turn, and R1's grad-of-grad through `down2x` launches
+the kernels too. The kernel takes even H and W only, so on a CUDA tensor
+the backward of a down2x whose output has an odd side raises.
 
 The kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, and loaded with ctypes (`_nvcc.build`).
@@ -30,6 +38,13 @@ from .upfirdn2d import upfirdn2d_ref
 # Launches of each kernel since the last reset; a run reads these to show
 # that its path went through the kernels.
 LAUNCHES = {"down2x": 0, "up2x": 0}
+# Calls of each pattern by the order of differentiation that made them,
+# counted on every device once the call has returned: on a CUDA tensor
+# each is a launch of the kernel. "backward" is a pattern applied as the
+# other pattern's VJP; "second_order" is one applied in the backward of
+# such a VJP (R1's grad-of-grad).
+ROLES = ("forward", "backward", "second_order")
+CALLS = {name: dict.fromkeys(ROLES, 0) for name in LAUNCHES}
 
 _lib = None
 
@@ -37,6 +52,7 @@ _lib = None
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        CALLS[name] = dict.fromkeys(ROLES, 0)
 
 
 # --------------------------------------------------------------------------
@@ -94,10 +110,6 @@ def _check(x: torch.Tensor, k1d, name: str) -> None:
         raise ValueError(f"{name}: H and W must be even, got {tuple(x.shape)}")
     if len(k1d) != 4:
         raise ValueError(f"{name}: needs 4 taps, got {len(k1d)}")
-    if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            f"{name}: the CUDA kernel is forward only; call it under torch.no_grad()"
-        )
     if x.numel() >= 2**31:
         raise ValueError(f"{name}: tensor too large for the kernel's int indexing")
 
@@ -122,15 +134,48 @@ def _launch(up: int, x: torch.Tensor, k1d, out_hw, name: str) -> torch.Tensor:
     return y
 
 
-def down2x(x: torch.Tensor, k1d) -> torch.Tensor:
-    """FIR downsample by 2: the kernel on CUDA, the plain version on CPU."""
+def _resample(name: str, x: torch.Tensor, k1d: tuple, order: int) -> torch.Tensor:
+    """The pattern `name` at differentiation order `order`: the kernel on
+    CUDA, the plain version on the CPU."""
     if x.device.type == "cpu":
-        return down2x_ref(x, k1d)
-    return _launch(0, x, k1d, (x.shape[2] // 2, x.shape[3] // 2), "down2x")
+        y = down2x_ref(x, k1d) if name == "down2x" else up2x_ref(x, k1d)
+    elif name == "down2x":
+        y = _launch(0, x, k1d, (x.shape[2] // 2, x.shape[3] // 2), name)
+    else:
+        y = _launch(1, x, k1d, (x.shape[2] * 2, x.shape[3] * 2), name)
+    CALLS[name][ROLES[min(order, 2)]] += 1
+    return y
+
+
+class _Down2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k1d, order):
+        ctx.k1d, ctx.order = k1d, order
+        return _resample("down2x", x, k1d, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Up2x.apply(g.contiguous(), ctx.k1d[::-1], ctx.order + 1), None, None
+
+
+class _Up2x(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, k1d, order):
+        ctx.k1d, ctx.order = k1d, order
+        return _resample("up2x", x, k1d, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _Down2x.apply(g.contiguous(), ctx.k1d[::-1], ctx.order + 1), None, None
+
+
+def down2x(x: torch.Tensor, k1d) -> torch.Tensor:
+    """FIR downsample by 2, differentiable to any order: the kernel on CUDA,
+    the plain version on CPU."""
+    return _Down2x.apply(x, tuple(float(v) for v in k1d), 0)
 
 
 def up2x(x: torch.Tensor, k1d) -> torch.Tensor:
-    """FIR upsample by 2: the kernel on CUDA, the plain version on CPU."""
-    if x.device.type == "cpu":
-        return up2x_ref(x, k1d)
-    return _launch(1, x, k1d, (x.shape[2] * 2, x.shape[3] * 2), "up2x")
+    """FIR upsample by 2, differentiable to any order: the kernel on CUDA,
+    the plain version on CPU."""
+    return _Up2x.apply(x, tuple(float(v) for v in k1d), 0)

@@ -9,12 +9,24 @@ and one rounding of the result to bfloat16.
 
 `pair_conv3x3_ref` is the plain version. `pair_conv3x3` checks its inputs
 on every device and raises on what the kernel does not take: a shape or
-dtype outside `supported`, a non-contiguous input, or an input that needs
-a gradient (the kernel is forward only). Then it launches the hand-written
-kernel of `csrc/pair_conv3x3.cu` on a CUDA tensor and runs the plain
-version on a CPU tensor. The kernel is built with nvcc for sm_90a at
-first use (`_nvcc.build`); a build or launch failure raises, and there is
-no fallback.
+dtype outside `supported`, or a non-contiguous input. Then it applies a
+`torch.autograd.Function` whose forward launches the hand-written kernel
+of `csrc/pair_conv3x3.cu` on a CUDA tensor and runs the plain version on a
+CPU tensor. The kernel is built with nvcc for sm_90a at first use
+(`_nvcc.build`); a build or launch failure raises, and there is no
+fallback.
+
+The backward mirrors the JAX package's custom VJP (`_bwd` :208-226):
+
+  * dx, only when x needs it: the same conv of the cotangent g with w
+    flipped spatially and its in/out axes swapped, zero bias. When that
+    conv passes `supported` (C_in 64, so the swapped weights have 64
+    outputs) it goes through this Function, so through the kernel on the
+    GPU; otherwise (C_in 128) it is the library's bf16 conv, as JAX's
+    `_ref_conv`;
+  * dW: the library's weight gradient of the bf16 conv of x and g, cast
+    to float32, as JAX's vjp of `_ref_conv` in the activation dtype;
+  * db: the sum of g in float32.
 
 On the GPU the plain version is a float32 `F.conv2d`, which cuDNN runs in
 TF32 unless `torch.backends.cudnn.allow_tf32` is False: compare the kernel
@@ -35,12 +47,19 @@ C_OUT = 64
 # Launches of the kernel since the last reset; a run reads this to show
 # that its path went through the kernel.
 LAUNCHES = {"pair_conv3x3": 0}
+# Routed calls by role, counted on every device once the call has
+# returned: "forward" and "dx" go through the kernel's route (on a CUDA
+# tensor each is a launch), "dx_library" is a dx that the gate sends to
+# the library conv.
+CALLS = {"forward": 0, "dx": 0, "dx_library": 0}
 
 _lib = None
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["pair_conv3x3"] = 0
+    for role in CALLS:
+        CALLS[role] = 0
 
 
 def supported(x_shape, w_shape, dtype) -> bool:
@@ -97,17 +116,10 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("pair_conv3x3: input must be contiguous (NCHW)")
     if x.device != w.device or x.device != b.device:
         raise ValueError(f"pair_conv3x3: x, w and b on {x.device}, {w.device}, {b.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
-        raise RuntimeError(
-            "pair_conv3x3: the kernel is forward only; call it under torch.no_grad() "
-            "(its backward comes with the training port, ROADMAP.md Queue 1)"
-        )
 
 
-def pair_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """3x3 same-pad conv plus bias (x NCHW bf16, w OIHW, b (64,)) -> NCHW
-    bf16: the kernel on CUDA, the plain version on CPU."""
-    _check(x, w, b)
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The checked conv: the kernel on CUDA, the plain version on CPU."""
     if x.device.type == "cpu":
         return pair_conv3x3_ref(x, w, b)
     if x.device.type != "cuda":
@@ -132,3 +144,45 @@ def pair_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
         raise RuntimeError(f"pair_conv3x3: kernel launch failed with CUDA error {err}")
     LAUNCHES["pair_conv3x3"] += 1
     return y
+
+
+class _PairConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, role):
+        y = _conv(x, w, b)
+        CALLS[role] += 1
+        ctx.save_for_backward(x, w)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            w_flip = w.flip(2, 3).transpose(0, 1)  # (C_in, 64, 3, 3)
+            if supported(tuple(g.shape), tuple(w_flip.shape), g.dtype):
+                zeros = torch.zeros(w_flip.shape[0], device=g.device, dtype=torch.float32)
+                dx = _apply(g, w_flip, zeros, "dx")
+            else:
+                dx = F.conv2d(g, w_flip.to(g.dtype), padding=1)
+                CALLS["dx_library"] += 1
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(
+                x.to(torch.bfloat16), w.shape, g.to(torch.bfloat16), padding=1
+            ).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            db = g.float().sum((0, 2, 3))
+        return dx, dw, db, None
+
+
+def _apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, role: str) -> torch.Tensor:
+    _check(x, w, b)
+    return _PairConv3x3.apply(x, w, b, role)
+
+
+def pair_conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """3x3 same-pad conv plus bias (x NCHW bf16, w OIHW, b (64,)) -> NCHW
+    bf16, differentiable in x, w and b: the kernel on CUDA, the plain
+    version on CPU."""
+    return _apply(x, w, b, "forward")

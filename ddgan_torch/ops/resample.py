@@ -2,9 +2,11 @@
 
 Counterpart of `ddgan_tpu/ops/resample.py` (reference semantics:
 score_sde/models/up_or_down_sampling.py). `upsample_2d` / `downsample_2d`
-send the 2x, 4-tap case on a CUDA tensor with even H and W to the
-hand-written kernel (`fir2x.up2x` / `fir2x.down2x`); every other case, and
-every CPU tensor, takes the plain path, which computes the same function.
+send the 2x, 4-tap case with even H and W to the differentiable
+`fir2x.up2x` / `fir2x.down2x`, which launch the hand-written kernel on a
+CUDA tensor and run their plain version on a CPU tensor, so the CPU runs
+the same gradient route as the GPU; every other case takes the plain
+path, which computes the same function.
 """
 
 from __future__ import annotations
@@ -19,9 +21,10 @@ from .upfirdn2d import upfirdn2d_ref
 
 def _fir2x_ok(x: torch.Tensor, k1d: np.ndarray, factor: int) -> bool:
     """The kernel's domain (`_pallas_2x_ok` of the JAX package without its
-    VMEM clause): a CUDA tensor, factor 2, 4 separable taps, even H and W."""
+    VMEM clause): a CUDA or CPU tensor, factor 2, 4 separable taps, even H
+    and W."""
     return (
-        x.device.type == "cuda"
+        x.device.type in ("cuda", "cpu")
         and factor == 2
         and k1d.ndim == 1
         and len(k1d) == 4

@@ -10,12 +10,26 @@ package through its own importer.
 from __future__ import annotations
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
 from ddgan_tpu.compat import convert_torch_state_dict
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread. The suite runs several
+    workers on a few cores, and on the small ops of these tests torch's own
+    thread pool on top of them spins more than it works (two orders of
+    magnitude slower in the parallel run). Import it into a test module to
+    use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def nchw(a) -> torch.Tensor:
@@ -37,6 +51,19 @@ def flax_params_from_port(module: torch.nn.Module, template):
     sd = {k: v.detach().cpu() for k, v in module.state_dict().items()}
     params, _ = convert_torch_state_dict(sd, template.get("params", {}), template.get("buffers"))
     return jax.tree.map(jnp.asarray, params)
+
+
+def random_flax_params(params, seed: int):
+    """Every leaf of a flax parameter tree redrawn N(0,1)/sqrt(fan_in) from a
+    numpy seed (fan_in: all but the last axis of a kernel, the size of a
+    vector); the JAX-side counterpart of `randomize_parameters_`."""
+    rng = np.random.RandomState(seed)
+
+    def draw(a):
+        fan_in = int(np.prod(a.shape[:-1])) if a.ndim > 1 else a.size
+        return (rng.standard_normal(a.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return jax.tree.map(draw, params)
 
 
 def tiny_config(**overrides):

@@ -16,6 +16,13 @@ pair_conv3x3: the four shapes of the 256x256 generator's gated convs at
 batch 16, and shapes with a partial channel chunk and a partial column
 tile. Both sides sum in f32 (TF32 off) and round once to bf16, so they
 differ by at most one bf16 rounding step: max-abs <= 1 ulp of max|ref|.
+
+Gradients: down2x / up2x to first and second order against autograd
+through their plain versions (max-abs 1e-5 of max|ref| in f32), the
+pair_conv3x3 VJP against autograd through its plain version (dx within 1
+bf16 ulp, dW bf16-rounded on both sides, db against float64), and one
+bf16 train step of a small 256x256 model whose gated convs and their dx
+launch the kernel.
 """
 
 import numpy as np
@@ -80,9 +87,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         fir2x.up2x(x.transpose(2, 3), k)
     with pytest.raises(ValueError, match="4 taps"):
         fir2x.up2x(x, k[:3])
-    with pytest.raises(RuntimeError, match="forward only"):
-        fir2x.up2x(x.clone().requires_grad_(), k)
     assert fir2x.LAUNCHES == before
+    # an input that needs a gradient is taken: the backward is ported
+    assert fir2x.up2x(x.clone().requires_grad_(), k).requires_grad
 
 
 @pytest.mark.cuda
@@ -150,9 +157,9 @@ def test_pair_conv_refuses_what_the_kernel_does_not_take(cuda_device):
     for args in bad:
         with pytest.raises(ValueError):
             pair_conv.pair_conv3x3(*args)
-    with pytest.raises(RuntimeError, match="forward only"):
-        pair_conv.pair_conv3x3(x, wt.clone().requires_grad_(), b)
     assert pair_conv.LAUNCHES["pair_conv3x3"] == before
+    # an input that needs a gradient is taken: the VJP is ported
+    assert pair_conv.pair_conv3x3(x, wt.clone().requires_grad_(), b).requires_grad
 
 
 @pytest.mark.cuda
@@ -171,3 +178,113 @@ def test_conv3x3_dispatches_to_the_kernel(cuda_device):
         want = pair_conv.pair_conv3x3_ref(x, gated.weight, gated.bias)
     scale = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= _bf16_ulp(scale)
+
+
+# (pattern, NCHW input) at the train step's shapes: DiscriminatorLarge at
+# batch 4 and the 256² generator's up path
+FIR_GRAD_CASES = [("down2x", (4, 256, 256, 256)), ("down2x", (4, 512, 32, 32)),
+                  ("up2x", (4, 64, 128, 128)), ("down2x", (3, 5, 12, 20)),
+                  ("up2x", (2, 3, 6, 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", FIR_GRAD_CASES)
+@pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
+def test_fir_grads_match_plain_to_second_order(cuda_device, name, shape, fir):
+    """grad of sum(f(a·x)²·r) in x, and the grad in the upstream scale a of
+    ‖that grad‖² (R1's grad-of-grad), against autograd through the plain
+    version, in float32."""
+    fn, ref = (fir2x.down2x, fir2x.down2x_ref) if name == "down2x" else (fir2x.up2x,
+                                                                          fir2x.up2x_ref)
+    k = _taps(fir, 2 if name == "up2x" else 1)
+    x = _randn(shape, seed=3).to(cuda_device)
+    r = _randn(tuple(fn(x, k).shape), seed=4).to(cuda_device)
+    results = []
+    for f in (fn, ref):
+        a = torch.ones((), device=cuda_device, requires_grad=True)
+        xi = a * x
+        (g,) = torch.autograd.grad((f(xi, k).square() * r).sum(), xi, create_graph=True)
+        (ga,) = torch.autograd.grad(g.square().sum(), a)
+        results.append((g.detach(), ga.detach()))
+    torch.cuda.synchronize()
+    (g, ga), (g_ref, ga_ref) = results
+    assert (g - g_ref).abs().max().item() <= 1e-5 * g_ref.abs().max().item()
+    assert abs(ga.item() - ga_ref.item()) <= 1e-5 * abs(ga_ref.item())
+
+
+@pytest.mark.cuda
+def test_fir_backward_launches_the_kernels(cuda_device):
+    x = _randn((2, 8, 16, 16)).to(cuda_device).requires_grad_(True)
+    fir2x.reset_launch_counts()
+    (g,) = torch.autograd.grad(fir2x.down2x(x, _taps(FIR)).square().sum(), x,
+                               create_graph=True)
+    g.square().sum().backward()
+    assert fir2x.LAUNCHES == {"down2x": 2, "up2x": 2}
+    assert fir2x.CALLS["down2x"] == {"forward": 1, "backward": 0, "second_order": 1}
+    assert fir2x.CALLS["up2x"] == {"forward": 0, "backward": 2, "second_order": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PAIR_PATH_SHAPES[:1] + [(4, 128, 256, 256), (4, 64, 128, 128),
+                                                          (4, 128, 128, 128)])
+def test_pair_conv_vjp_matches_plain(cuda_device, shape):
+    x, wt, b = _pair_inputs(shape, sum(shape) + 1, cuda_device)
+    g = torch.from_numpy(np.random.RandomState(9).randn(shape[0], 64, shape[2], shape[3])
+                         .astype(np.float32)).to(cuda_device, torch.bfloat16)
+    grads = []
+    pair_conv.reset_launch_counts()
+    for f in (pair_conv.pair_conv3x3, pair_conv.pair_conv3x3_ref):
+        xi, wi, bi = (t.clone().requires_grad_(True) for t in (x, wt, b))
+        f(xi, wi, bi).backward(g)
+        grads.append((xi.grad, wi.grad, bi.grad))
+    torch.cuda.synchronize()
+    gated = shape[1] == 64
+    assert pair_conv.CALLS == {"forward": 1, "dx": int(gated), "dx_library": int(not gated)}
+    assert pair_conv.LAUNCHES["pair_conv3x3"] == 1 + gated
+    (dx, dw, db), (dx_r, dw_r, db_r) = grads
+    scale = dx_r.float().abs().max().item()
+    assert dx.dtype == torch.bfloat16 and (dx.float() - dx_r.float()).abs().max().item() <= \
+        _bf16_ulp(scale)
+    # the plain dW is f32; the port's is the library's bf16 result, cast
+    assert (dw - dw_r.to(torch.bfloat16).float()).abs().max().item() <= \
+        2 * _bf16_ulp(dw_r.abs().max().item())
+    db_true = g.double().sum((0, 2, 3))
+    assert (db.double() - db_true).abs().max().item() <= 1e-4 * db_true.abs().max().item()
+    assert (db_r.double() - db_true).abs().max().item() <= 1e-4 * db_true.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_at_256_launches_the_kernels(cuda_device):
+    """One bf16 train step (R1 on) of a narrow 256² model: NCSN++ nf 64,
+    ch_mult [1, 1, 2], 1 resblock, DiscriminatorLarge ngf 4, batch 2."""
+    from ddgan_torch.config import Config
+    from ddgan_torch.diffusion import DiffusionCoefficients, PosteriorCoefficients
+    from ddgan_torch.models import NCSNpp, build_discriminator
+    from ddgan_torch.train import ClippedAdam, create_train_state, make_train_step
+
+    cfg = Config(image_size=256, num_channels=3, num_channels_dae=64, ch_mult=[1, 1, 2],
+                 num_res_blocks=1, attn_resolutions=[], nz=8, z_emb_dim=16, n_mlp=1,
+                 t_emb_dim=16, ngf=4, num_timesteps=2, dropout=0.0, disc_small="no",
+                 compute_dtype="bfloat16")
+    g = torch.Generator().manual_seed(0)
+    gen = NCSNpp.from_config(cfg, generator=g).to(cuda_device)
+    disc = build_discriminator(cfg, generator=g).to(cuda_device)
+    state = create_train_state(gen, disc, ClippedAdam(gen.parameters(), 0.5, 0.9),
+                               ClippedAdam(disc.parameters(), 0.5, 0.9))
+    step = make_train_step(
+        DiffusionCoefficients.create(2, 0.1, 20.0, device=cuda_device),
+        PosteriorCoefficients.create(2, 0.1, 20.0, device=cuda_device),
+        num_timesteps=2, nz=cfg.nz, r1_gamma=2.0, lazy_reg=10, ema_decay=0.999, use_ema=True)
+    real = torch.rand((2, 3, 256, 256), device=cuda_device) * 2 - 1
+    fir2x.reset_launch_counts()
+    pair_conv.reset_launch_counts()
+    m = step(state, real, torch.Generator(device=cuda_device).manual_seed(1), 1e-4, 1e-4)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in m) and float(m.grad_penalty) > 0
+    assert all(bool(torch.isfinite(p).all()) for p in gen.parameters())
+    # the 256² and 128² levels' Conv_0/Conv_1 (C_in 64) in both G forwards,
+    # and their dx in G's backward
+    assert pair_conv.CALLS["forward"] > 0 and pair_conv.CALLS["dx"] > 0
+    assert pair_conv.LAUNCHES["pair_conv3x3"] == pair_conv.CALLS["forward"] + pair_conv.CALLS["dx"]
+    assert fir2x.CALLS["down2x"]["second_order"] == 12  # six D blocks, two down2x each
+    assert sum(fir2x.LAUNCHES.values()) == sum(sum(c.values()) for c in fir2x.CALLS.values())

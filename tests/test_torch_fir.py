@@ -5,14 +5,19 @@ the 2x patterns (plain versions, and the wrappers on CPU tensors) against
 the Pallas `down2x` / `up2x` in interpret mode, with the symmetric flagship
 taps and asymmetric taps that catch a missing flip; the resample layer
 against `ddgan_tpu.ops.resample`. Tolerance rtol 1e-5 / atol 1e-6: the
-same f32 sums in another order. The CUDA kernel itself is compared with
-its plain version in `test_torch_cuda.py`, which needs a GPU.
+same f32 sums in another order. The wrappers' autograd (the other
+pattern with the taps reversed, differentiable in turn) against `jax.grad`
+through the Pallas functions to first and second order (rtol 1e-4 / atol
+1e-5, as `tests/test_pallas_fir.py`), and by `gradcheck` / `gradgradcheck`
+in float64. The CUDA kernel itself is compared with its plain version in
+`test_torch_cuda.py`, which needs a GPU.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from ddgan_tpu.ops import resample as jresample
@@ -23,7 +28,7 @@ from ddgan_tpu.ops.upfirdn2d import upfirdn2d_ref as jupfirdn2d_ref
 from ddgan_torch.ops import fir2x, resample
 from ddgan_torch.ops.upfirdn2d import upfirdn2d_ref
 
-from _torch_port import nchw, nhwc, randn
+from _torch_port import nchw, nhwc, one_torch_thread, randn  # noqa: F401 (autouse)
 
 FIR = np.array([1.0, 3.0, 3.0, 1.0])
 FIR_ASYM = np.array([1.0, 2.0, 3.0, 4.0])
@@ -109,3 +114,56 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         fir2x.up2x(x, _k1d(FIR))
     assert fir2x.LAUNCHES == {"down2x": 0, "up2x": 0}
 
+
+
+_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+# (pattern, NHWC input shape, taps' factor); the ports and the JAX functions
+_PATTERNS = {
+    "down2x": ((1, 8, 8, 3), 1, fir2x.down2x, jdown2x),
+    "up2x": ((1, 4, 6, 3), 2, fir2x.up2x, jup2x),
+}
+
+
+@pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("name", sorted(_PATTERNS))
+def test_gradients_match_pallas_to_second_order(name, fir):
+    """As `tests/test_pallas_fir.py::test_down2x_gradients_match_xla`: the
+    grad of sum(f(x)^2), and the grad of the squared norm of that grad (the
+    R1 grad-of-grad), against `jax.grad` through the Pallas function."""
+    shape, factor, fn, jfn = _PATTERNS[name]
+    x = randn(3, *shape)
+    k = _k1d(fir, factor)
+
+    def j_loss(v):
+        return (jfn(v, k) ** 2).sum()
+
+    def j_r1(v):
+        return (jax.grad(j_loss)(v) ** 2).sum()
+
+    fir2x.reset_launch_counts()
+    xt = nchw(x).requires_grad_(True)
+    (g,) = torch.autograd.grad((fn(xt, k) ** 2).sum(), xt, create_graph=True)
+    np.testing.assert_allclose(nhwc(g), np.asarray(jax.grad(j_loss)(jnp.asarray(x))),
+                               **_GRAD_TOL)
+    (gg,) = torch.autograd.grad((g**2).sum(), xt)
+    np.testing.assert_allclose(nhwc(gg), np.asarray(jax.grad(j_r1)(jnp.asarray(x))),
+                               **_GRAD_TOL)
+    other = "up2x" if name == "down2x" else "down2x"
+    # f forward; its VJP (the other pattern) in the first grad and again in
+    # the second; the VJP of that VJP (this pattern again) in the second
+    assert fir2x.CALLS[name] == {"forward": 1, "backward": 0, "second_order": 1}
+    assert fir2x.CALLS[other] == {"forward": 0, "backward": 2, "second_order": 0}
+    assert fir2x.LAUNCHES == {"down2x": 0, "up2x": 0}  # CPU tensors take the plain path
+
+
+@pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("name", sorted(_PATTERNS))
+def test_gradcheck_and_gradgradcheck_in_f64(name, fir):
+    _, factor, fn, _ = _PATTERNS[name]
+    # small planes: the checks differentiate numerically element by element
+    shape = (1, 4, 4, 2) if name == "down2x" else (1, 2, 4, 2)
+    x = torch.from_numpy(randn(7, *shape).astype(np.float64).transpose(0, 3, 1, 2).copy())
+    k = _k1d(fir, factor)
+    x.requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda v: fn(v, k), (x,))
+    assert torch.autograd.gradgradcheck(lambda v: fn(v, k), (x,))

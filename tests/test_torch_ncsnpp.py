@@ -26,13 +26,14 @@ from ddgan_torch.models import NCSNpp, get_model
 from ddgan_torch.ops import fir2x
 from ddgan_torch.utils import randomize_parameters_
 
-from _torch_port import (
+from _torch_port import (  # noqa: F401  (one_torch_thread: an autouse fixture)
     celeba256_config,
     count_pallas_calls,
     count_routed,
     flax_params_from_port,
     nchw,
     nhwc,
+    one_torch_thread,
     randn,
     tiny_config,
 )

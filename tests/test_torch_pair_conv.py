@@ -1,11 +1,15 @@
 """The port's gated 3x3 conv (`ddgan_torch.ops.pair_conv`) against the JAX
 package's Pallas kernel `pair_conv3x3` (interpret mode on the CPU), its
-gate `supported`, and the routing of `Conv3x3`.
+gate `supported`, its VJP, and the routing of `Conv3x3`.
 
 Inputs come from numpy seeds; images cross NHWC (JAX) <-> NCHW (port),
 weights HWIO <-> OIHW. Both sides round x and w to bf16, sum in f32 and
 add the f32 bias before one rounding to bf16, so they differ by at most
-one bf16 rounding step: max-abs <= 1 ulp of max|ref|.
+one bf16 rounding step: max-abs <= 1 ulp of max|ref|. The VJP is held to
+`jax.grad` through the JAX `pair_conv3x3` under the bounds of
+`tests/test_pallas_conv.py::test_pair_conv_vjp_matches_lax`: dx and dW
+within 5e-2 of max|ref| (bf16 operands, sums in another order), db within
+5e-2 of the float64 ground truth.
 """
 
 import jax
@@ -135,11 +139,9 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     xt, wt, bt = nchw(x).to(torch.bfloat16), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), \
         torch.from_numpy(b)
     before = dict(pair_conv.LAUNCHES)
-    with pytest.raises(RuntimeError, match="forward only"):
-        pair_conv.pair_conv3x3(xt, wt.requires_grad_(), bt)
-    wt = wt.detach()
-    with pytest.raises(RuntimeError, match="forward only"):
-        pair_conv.pair_conv3x3(xt.clone().requires_grad_(), wt, bt)
+    # inputs that need a gradient are taken: the VJP is ported
+    assert pair_conv.pair_conv3x3(xt, wt.clone().requires_grad_(), bt).requires_grad
+    assert pair_conv.pair_conv3x3(xt.clone().requires_grad_(), wt, bt).requires_grad
     bad = [
         (xt.float(), wt, bt),                        # f32 input
         (xt[:, :, :96, :96].contiguous(), wt, bt),   # 96 < 128
@@ -151,3 +153,41 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
         with pytest.raises(ValueError):
             pair_conv.pair_conv3x3(*args)
     assert pair_conv.LAUNCHES == before
+
+
+@pytest.mark.parametrize("c_in", [64, 128])
+def test_vjp_matches_jax(c_in):
+    """dx, dW and db against `jax.grad` through the JAX `pair_conv3x3` at
+    (1, 128, 128, C_in) in bf16. dx takes this kernel's route only when the
+    flipped, in/out-swapped weights pass the gate (C_in 64); otherwise the
+    library conv, as the JAX `_bwd`."""
+    x, w, b = _inputs(c_in, n=1, seed=3)
+
+    def loss(x_, w_, b_):
+        return jnp.sum(pallas_conv.pair_conv3x3(x_, w_, b_).astype(jnp.float32) ** 2)
+
+    jx = jnp.asarray(x, jnp.bfloat16)
+    gx, gw, gb = jax.grad(loss, argnums=(0, 1, 2))(jx, jnp.asarray(w), jnp.asarray(b))
+
+    xt = nchw(x).to(torch.bfloat16).requires_grad_(True)
+    wt = torch.from_numpy(w.transpose(3, 2, 0, 1).copy()).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    pair_conv.reset_launch_counts()
+    y = pair_conv.pair_conv3x3(xt, wt, bt)
+    (y.float() ** 2).sum().backward()
+    gated = pair_conv.supported((1, 64, 128, 128), (c_in, 64, 3, 3), torch.bfloat16)
+    assert gated == (c_in == 64)
+    assert pair_conv.CALLS == {"forward": 1, "dx": int(gated), "dx_library": int(not gated)}
+    assert pair_conv.LAUNCHES == {"pair_conv3x3": 0}  # CPU tensors take the plain path
+    assert xt.grad.dtype == torch.bfloat16 and wt.grad.dtype == bt.grad.dtype == torch.float32
+
+    for got, want, name in ((nhwc(xt.grad), gx, "dx"),
+                            (wt.grad.numpy().transpose(2, 3, 1, 0), gw, "dw")):
+        want = np.asarray(want, np.float32)
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err < 5e-2, (name, err)
+    y64 = np.asarray(pallas_conv._ref_conv(jx, jnp.asarray(w).astype(jx.dtype),
+                                           jnp.asarray(b)), np.float64)
+    db_true = 2.0 * y64.sum(axis=(0, 1, 2))
+    for db in (bt.grad.numpy(), np.asarray(gb)):
+        assert np.abs(db - db_true).max() / np.abs(db_true).max() < 5e-2

@@ -26,7 +26,9 @@ from ddgan_torch.diffusion import schedules
 from ddgan_torch.models import NCSNpp
 from ddgan_torch.utils import encode_png, randomize_parameters_, save_image
 
-from _torch_port import celeba256_config, flax_params_from_port, nchw, nhwc, randn, tiny_config
+from _torch_port import (  # noqa: F401  (one_torch_thread: an autouse fixture)
+    celeba256_config, flax_params_from_port, nchw, nhwc, one_torch_thread, randn, tiny_config,
+)
 
 CPU = "cpu"
 T = 4

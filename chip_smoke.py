@@ -12,7 +12,8 @@ The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
 
   1. print the card's name and power limit (nvidia-smi);
   2. build both CUDA kernels from ddgan_torch/csrc/ (sm_90a), one nvcc
-     each, started together: fir2x.cu and pair_conv3x3.cu;
+     each, started together: fir2x.cu and pair_conv3x3.cu, printing what
+     ptxas reports for each kernel (registers, shared memory, spills);
   3. hold down2x / up2x against their plain PyTorch versions at every
      flagship shape, f32 and bf16, symmetric and asymmetric taps;
   4. build the generator with non-trivial weights (output std > 0.05);
@@ -36,9 +37,11 @@ The CelebA-HQ 256 T=2 sampler (nf 64, ch_mult 1 1 2 2 4 4, 2 resblocks,
 attention at 16, n_mlp 3; batch 16):
 
  10. hold pair_conv3x3 against its plain version at the four shapes of the
-     generator's gated convs at batch 16 and at batch 2 (max-abs <= 1 bf16
-     ulp of max|ref|), and check that gated-out shapes and dtypes raise;
- 11. hold down2x / up2x against their plain versions at the 256² shapes;
+     generator's gated convs at batch 16 and at batch 2, and at an edge of
+     its gate, (3, 2, 160, 160) (max-abs <= 1 bf16 ulp of max|ref|), and
+     check that gated-out shapes and dtypes raise;
+ 11. hold down2x / up2x against their plain versions at the 256² shapes,
+     and down2x at bf16 rows of 24 bytes (its scalar path);
  12. build the full-width generator with weights N(0,1)/sqrt(fan_in): its
      parameter count and output std (> 0.05);
  13. run the T=2 sampler in f32, TF32 off, against the CPU plain path at
@@ -50,7 +53,8 @@ attention at 16, n_mlp 3; batch 16):
      launch counts reset before it and read after; 256² PNGs must appear;
  16. time the sampler (samples/s, bf16 and f32) and pair_conv3x3 per shape
      beside its bound, its plain version and the library call
-     (`F.conv2d` in bf16, timed only), and the FIR kernels at 256²;
+     (`F.conv2d` in bf16, timed only), and the FIR kernels at 256², each
+     with its TFLOP/s or GB/s and its share of the bound;
  17. profile two bf16 calls, with pair_conv3x3 as its own kernel class.
 
 Training (`ddgan_torch.train.make_train_step`), the CelebA-HQ 256 recipe
@@ -81,9 +85,10 @@ flagship one (DiscriminatorSmall, r1_gamma 0.02, lazy_reg 15, batch 64):
      batch 64 with dropout 0.1 (no pair_conv3x3);
  25. ms per bf16 step (R1 steps and the others apart), samples/s, peak
      memory, and each kernel's time per step by role beside its bound, its
-     plain version and the library call;
+     plain version and the library call (K2's dx as the step launches it:
+     the forward weight, flipped in the kernel, no bias);
  26. profile two bf16 256² steps: device time by kernel class, K1 and K2 by
-     role, and the busy share;
+     role, the busy share and the kernel launches per step;
  27. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role), and the `{"ok": true, ...}` line last.
 
@@ -292,7 +297,7 @@ def library_call(kind: str, k1d):
 
 def _kernel_class(name: str) -> str:
     low = name.lower()
-    if "fir2x" in low:
+    if "fir2x" in low or "down2x_kernel" in low or "up2x_kernel" in low:
         return "fir2x"
     if "pair_conv3x3" in low:
         return "pair_conv3x3"
@@ -416,8 +421,10 @@ def time_fir_kernels(fir2x, shapes_by_kind, model: str) -> dict:
                 rows.append({"model": model, "shape": list(shp), "dtype": str(dtype)[6:],
                              "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
                              "bound_by": b_by})
+                moved = math.prod(shp) * (1.25 if name == "down2x" else 5) * bufs[0].element_size()
                 print(f"{name} {shp} {str(dtype)[6:]}: kernel {k_ms:.4f} ms, plain {p_ms:.4f}, "
-                      f"library {l_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+                      f"library {l_ms:.4f}, bound {b_ms:.4f} ({b_by}); kernel at "
+                      f"{moved / k_ms / 1e6:.0f} GB/s, {b_ms / k_ms:.1%} of its bound")
                 del bufs
         rows_by_kind[name] = rows
     return rows_by_kind
@@ -760,8 +767,8 @@ class LaunchRecorder:
         def fir(name, x, k1d, order):
             return self._run(f"{name}.{roles[min(order, 2)]}", x, fir_inner, name, x, k1d, order)
 
-        def pair(x, w, b, role):
-            return self._run(f"pair_conv3x3.{role}", x, pair_inner, x, w, b, role)
+        def pair(x, w, b, role, flip=False):
+            return self._run(f"pair_conv3x3.{role}", x, pair_inner, x, w, b, role, flip)
 
         self.fir2x._resample, self.pair_conv._apply = fir, pair
         return self
@@ -852,21 +859,27 @@ def time_launches(fir2x, pair_conv, counts_by_step: dict) -> dict:
                 bufs = rotation(shape, torch.bfloat16, n * 64 * h * w, seed=8)
                 g0 = torch.Generator(device="cuda").manual_seed(9)
                 wt = torch.randn((64, c, 3, 3), generator=g0, device="cuda") / math.sqrt(9 * c)
-                b = torch.zeros((64,), device="cuda")
                 w16 = wt.to(torch.bfloat16)
                 iters = max(20, 2 * len(bufs))
-                if role == "dx":  # the input gradient of a conv with w (64 -> c)
-                    lib = lambda y: torch.nn.grad.conv2d_input((n, c, h, w), w16.transpose(0, 1)
-                                                               .flip(2, 3), y, padding=1)
+                if role == "dx":
+                    # as the step launches it: the forward weight (64, 64) with
+                    # the in-kernel flip and no bias; the library's input
+                    # gradient of the forward conv
+                    b, flip = None, True
+                    lib = lambda y: torch.nn.grad.conv2d_input((n, c, h, w), w16, y, padding=1)
                 else:
+                    b, flip = torch.zeros((64,), device="cuda"), False
                     lib = lambda y: F.conv2d(y, w16, padding=1)
                 with torch.no_grad():
-                    row = {"ms": device_ms(lambda y: pair_conv.pair_conv3x3(y, wt, b), bufs, iters),
-                           "plain_ms": device_ms(lambda y: pair_conv.pair_conv3x3_ref(y, wt, b),
+                    row = {"ms": device_ms(lambda y: pair_conv._conv(y, wt, b, flip), bufs, iters),
+                           "plain_ms": device_ms(lambda y: pair_conv.pair_conv3x3_ref(y, wt, b, flip),
                                                  bufs, iters),
                            "library_ms": device_ms(lib, bufs, iters)}
                 row["bound_ms"], row["bound_by"] = pair_bound_ms(shape)
             timed[(key, shape, dt)] = row
+            print(f"  {key} {shape} {dt}: kernel {row['ms']:.4f} ms, library "
+                  f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}), "
+                  f"{row['bound_ms'] / row['ms']:.1%} of its bound")
             del bufs
     roles: dict = {}
     for step_name, counts in counts_by_step.items():
@@ -1066,7 +1079,10 @@ def main() -> int:
     del net16, net32, net_cpu, got, want, out
 
     phase("10 pair_conv3x3 against its plain version")
-    pair_shapes = [(BATCH_256, c, s, s) for (c, s) in PAIR_CONVS] + [(2, 64, 128, 128)]
+    # and an edge of the gate: 2 input channels (one 16-channel step, mostly
+    # zero-filled) and a 160-wide map (its last 64-column tile half outside)
+    pair_shapes = [(BATCH_256, c, s, s) for (c, s) in PAIR_CONVS] + [(2, 64, 128, 128),
+                                                                     (3, 2, 160, 160)]
     for i, shp in enumerate(pair_shapes):
         n, c, h, w = shp
         g = torch.Generator(device=dev).manual_seed(100 + i)
@@ -1100,7 +1116,9 @@ def main() -> int:
     print(f"{len(refused)} gated-out shapes and dtypes raised ValueError")
 
     phase("11 FIR kernels against their plain versions, 256² shapes")
-    check_fir_kernels(fir2x, {"down2x": DOWN_SHAPES_256, "up2x": UP_SHAPES_256}, max_abs)
+    # and a down2x input whose bf16 rows are 24 bytes (W 12): the scalar path
+    check_fir_kernels(fir2x, {"down2x": DOWN_SHAPES_256 + [(2, 3, 10, 12)], "up2x": UP_SHAPES_256},
+                      max_abs)
 
     phase("12 CelebA-HQ 256 generator, full width")
     cfg2 = celeba256_config(Config)
@@ -1217,7 +1235,8 @@ def main() -> int:
                           "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by})
         print(f"pair_conv3x3 {shp}: kernel {k_ms:.4f} ms, plain {p_ms:.4f}, library "
               f"{l_ms:.4f}, bound {b_ms:.4f} ({b_by}); kernel at "
-              f"{2 * BATCH_256 * s * s * 64 * 9 * c / k_ms / 1e9:.1f} TFLOP/s")
+              f"{2 * BATCH_256 * s * s * 64 * 9 * c / k_ms / 1e9:.1f} TFLOP/s, "
+              f"{b_ms / k_ms:.1%} of its bound")
         del bufs
     fir_rows256 = time_fir_kernels(fir2x, {"down2x": DOWN_SHAPES_256, "up2x": UP_SHAPES_256},
                                    "celeba256")
@@ -1389,6 +1408,8 @@ def main() -> int:
         lambda: stp(st, real256, torch.Generator(device=dev).manual_seed(24), 1e-4, 1e-4),
         (train_times["celeba256"]["r1_step"] + train_times["celeba256"]["plain_step"]) / 2,
         fir2x, pair_conv)
+    print(f"{train_profile['kernel_launches_per_step']} kernel launches per 256² step "
+          f"(mean of an R1 step and another)")
 
     phase("27 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches}

@@ -85,6 +85,7 @@ def build(verbose: bool = False) -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
@@ -95,6 +96,36 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 # wrappers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Lanes in flight that fill an H100 to a quarter (132 SMs x 512): the down2x
+# plan shortens its row segments until a launch has this many, trading
+# re-read halo rows for parallelism on small tensors.
+_DOWN_TARGET_LANES = 132 * 512
+_DOWN_MAX_ROWS = 16
+
+
+def down2x_plan(planes: int, h: int, w: int, aligned: bool) -> dict:
+    """The launch plan of the down2x kernel for `planes` planes of h x w.
+
+    A lane owns 4 adjacent outputs of a row (8 input columns), so a row
+    strip takes ceil(w / 8) lanes; a group is that many rounded up to a
+    power of two (to a multiple of 32 past one warp), so groups never
+    straddle a warp. Each lane walks down `rows` output rows: at most 16,
+    halved while the launch would have fewer than `_DOWN_TARGET_LANES`
+    lanes. The vector path (16-byte loads, one store per strip) needs every
+    row to start on a 16-byte boundary in both dtypes: w % 8 == 0 and
+    16-byte aligned tensors (`aligned`); otherwise the scalar path."""
+    oh = h // 2
+    lanes_per_row = -(-w // 8)
+    if lanes_per_row <= 32:
+        group = 1 << (lanes_per_row - 1).bit_length()
+    else:
+        group = 32 * -(-lanes_per_row // 32)
+    rows = min(oh, _DOWN_MAX_ROWS)
+    while rows > 1 and planes * -(-oh // rows) * group < _DOWN_TARGET_LANES:
+        rows = (rows + 1) // 2
+    segs = -(-oh // rows)
+    return {"vec": bool(w % 8 == 0 and aligned), "group": group, "rows": rows,
+            "segments": segs, "lanes": planes * segs * group}
 
 
 def _check(x: torch.Tensor, k1d, name: str) -> None:
@@ -122,11 +153,14 @@ def _launch(up: int, x: torch.Tensor, k1d, out_hw, name: str) -> torch.Tensor:
         return y
     lib = build()
     taps = [float(v) for v in k1d]
+    plan = {"vec": False, "group": 0, "rows": 0}  # up2x plans its own launch
+    if not up:
+        plan = down2x_plan(n * c, h, w, x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ddgan_fir2x(
             up, _DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
-            n * c, h, w, *taps, stream,
+            n * c, h, w, *taps, int(plan["vec"]), plan["group"], plan["rows"], stream,
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")

@@ -14,8 +14,12 @@ TF32 off), 2e-2 of max|ref| in bfloat16 (one rounding of the output).
 
 pair_conv3x3: the four shapes of the 256x256 generator's gated convs at
 batch 16, and shapes with a partial channel chunk and a partial column
-tile. Both sides sum in f32 (TF32 off) and round once to bf16, so they
+tile; the dx route's in-kernel flip, f32 and bf16 weights and a null
+bias. Both sides sum in f32 (TF32 off) and round once to bf16, so they
 differ by at most one bf16 rounding step: max-abs <= 1 ulp of max|ref|.
+
+down2x also on its scalar path (rows that do not start on 16 bytes) and
+with many small planes per warp.
 
 Gradients: down2x / up2x to first and second order against autograd
 through their plain versions (max-abs 1e-5 of max|ref| in f32), the
@@ -72,6 +76,37 @@ def test_kernel_matches_plain(cuda_device, shape, dtype, fir):
         assert got.dtype == dtype and got.shape == want.shape
         bound = 1e-5 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
         assert (got.float() - want).abs().max().item() <= bound
+
+
+# down2x shapes for the streaming kernel's paths: bf16 rows whose byte stride
+# is not a multiple of 16 (W 12, 22: the scalar path), output widths 11 and
+# 33, many small planes in one warp, rows wider than a warp (W 520)
+DOWN_EDGE_SHAPES = [(2, 3, 10, 12), (3, 5, 22, 22), (1, 4, 14, 66), (64, 256, 4, 4),
+                    (64, 256, 8, 8), (4, 64, 6, 16), (1, 3, 12, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DOWN_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_down2x_paths_match_plain(cuda_device, shape, dtype, fir, aligned):
+    """down2x on the vector and the scalar path: an input that starts one
+    element past a 16-byte boundary takes the scalar path whatever W is."""
+    x = _randn(shape, seed=5).to(cuda_device, dtype)
+    if not aligned:
+        buf = torch.empty(x.numel() + 1, device=cuda_device, dtype=dtype)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    plan = fir2x.down2x_plan(shape[0] * shape[1], shape[2], shape[3], x.data_ptr() % 16 == 0)
+    assert plan["vec"] == (aligned and shape[3] % 8 == 0)
+    k = _taps(fir)
+    with torch.no_grad():
+        got, want = fir2x.down2x(x, k), fir2x.down2x_ref(x.float(), k)
+    torch.cuda.synchronize()
+    bound = 1e-5 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want).abs().max().item() <= bound
 
 
 @pytest.mark.cuda
@@ -140,6 +175,74 @@ def test_pair_conv_matches_plain(cuda_device, shape):
     assert got.dtype == torch.bfloat16 and got.shape == (shape[0], 64) + shape[2:]
     scale = want.float().abs().max().item()
     assert scale > 0.5
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_ulp(scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128), (3, 64, 160, 160), (1, 64, 224, 224)])
+def test_pair_conv_flip_matches_the_flipped_weights(cuda_device, shape):
+    """The dx route: the kernel flips and swaps the forward weight while it
+    packs it (no bias); held against the plain conv of the flipped,
+    transposed weights made in PyTorch and contiguous, with a zero bias."""
+    g, _, _ = _pair_inputs(shape, sum(shape) + 2, cuda_device)
+    w = torch.from_numpy(np.random.RandomState(7).randn(64, 64, 3, 3).astype(np.float32)
+                         / 24.0).to(cuda_device)
+    before = pair_conv.LAUNCHES["pair_conv3x3"]
+    with torch.no_grad():
+        got = pair_conv._conv(g, w, None, flip=True)
+        want = pair_conv.pair_conv3x3_ref(g, w.flip(2, 3).transpose(0, 1).contiguous(),
+                                          torch.zeros(64, device=cuda_device))
+    torch.cuda.synchronize()
+    assert pair_conv.LAUNCHES["pair_conv3x3"] == before + 1
+    scale = want.float().abs().max().item()
+    assert scale > 0.5
+    assert (got.float() - want.float()).abs().max().item() <= _bf16_ulp(scale)
+
+
+@pytest.mark.cuda
+def test_pair_conv_launches_from_a_fresh_thread(cuda_device):
+    """A launch from a thread that has made no CUDA call yet, as autograd's
+    backward thread can be: the kernel's tensor maps are encoded by a
+    libcuda call that needs the device's context current on the thread."""
+    import threading
+
+    g, _, _ = _pair_inputs((1, 64, 128, 128), 5, cuda_device)
+    w = torch.from_numpy(np.random.RandomState(8).randn(64, 64, 3, 3).astype(np.float32)
+                         / 24.0).to(cuda_device)
+    out = {}
+
+    def run():
+        try:
+            out["y"] = pair_conv._conv(g, w, None, flip=True)
+        except Exception as exc:  # reported below, on the test's thread
+            out["error"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    want = pair_conv.pair_conv3x3_ref(g, w, None, flip=True)
+    scale = want.float().abs().max().item()
+    assert (out["y"].float() - want.float()).abs().max().item() <= _bf16_ulp(scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 128, 128), (1, 34, 160, 160), (2, 128, 128, 128)])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no_bias"])
+def test_pair_conv_weight_dtypes_and_null_bias(cuda_device, shape, w_dtype, with_bias):
+    """The kernel reads an f32 or a bf16 weight and rounds it itself; a null
+    bias is a zero bias."""
+    x, wt, b = _pair_inputs(shape, sum(shape) + 3, cuda_device)
+    wt = wt.to(w_dtype)
+    b = b if with_bias else None
+    with torch.no_grad():
+        got = pair_conv.pair_conv3x3(x, wt, b)
+        want = pair_conv.pair_conv3x3_ref(x, wt.float(),
+                                          b if with_bias else torch.zeros(64, device=cuda_device))
+    torch.cuda.synchronize()
+    scale = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() <= _bf16_ulp(scale)
 
 

@@ -167,3 +167,42 @@ def test_gradcheck_and_gradgradcheck_in_f64(name, fir):
     x.requires_grad_(True)
     assert torch.autograd.gradcheck(lambda v: fn(v, k), (x,))
     assert torch.autograd.gradgradcheck(lambda v: fn(v, k), (x,))
+
+
+# down2x inputs of the two recipes' train steps and samplers (NCHW), and
+# edge shapes: odd output widths, rows narrower than 8 and wider than a warp
+_DOWN_PLAN_SHAPES = [(4, 256, 256, 256), (4, 512, 8, 8), (16, 64, 256, 256), (64, 256, 8, 8),
+                     (64, 128, 32, 32), (2, 3, 38, 22), (1, 2, 70, 66), (1, 37, 4, 4),
+                     (3, 5, 12, 20), (1, 3, 12, 520), (2, 1, 2, 2)]
+
+
+@pytest.mark.parametrize("shape", _DOWN_PLAN_SHAPES)
+def test_down2x_plan_covers_every_output_once(shape):
+    """The launch plan of the down2x kernel, walked as the kernel walks it:
+    lane `gid` is strip j = gid % group of row segment `unit` = gid // group;
+    live lanes write outputs 4j..4j+3 of rows seg*rows .. +rows-1. Every
+    output is written exactly once, groups never straddle a warp (the halo
+    shuffles stay inside one), and small launches are split until they
+    fill the card or a lane takes one row."""
+    n, c, h, w = shape
+    planes, oh, ow = n * c, h // 2, w // 2
+    for aligned in (True, False):
+        plan = fir2x.down2x_plan(planes, h, w, aligned)
+        assert plan["vec"] == (aligned and w % 8 == 0)
+    group, rows, segs = plan["group"], plan["rows"], plan["segments"]
+    lanes_per_row = -(-w // 8)
+    assert group >= lanes_per_row and (32 % group == 0 if group <= 32 else group % 32 == 0)
+    assert 1 <= rows <= 16 and segs * rows >= oh > (segs - 1) * rows
+    assert plan["lanes"] >= fir2x._DOWN_TARGET_LANES or rows == 1
+    gid = np.arange(plan["lanes"])
+    j, unit = gid % group, gid // group
+    seg, p = unit % segs, unit // segs
+    live = (p < planes) & (j < lanes_per_row)
+    hits = np.zeros((planes, oh, ow), np.int64)
+    for i in range(rows):
+        r = seg * rows + i
+        for t in range(4):
+            col = 4 * j + t
+            ok = live & (r < oh) & (col < ow)
+            np.add.at(hits, (p[ok], r[ok], col[ok]), 1)
+    assert (hits == 1).all()

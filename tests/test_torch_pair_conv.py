@@ -191,3 +191,51 @@ def test_vjp_matches_jax(c_in):
     db_true = 2.0 * y64.sum(axis=(0, 1, 2))
     for db in (bt.grad.numpy(), np.asarray(gb)):
         assert np.abs(db - db_true).max() / np.abs(db_true).max() < 5e-2
+
+
+@pytest.mark.parametrize("c_in", [2, 34, 64, 96, 128])
+@pytest.mark.parametrize("side", [128, 160, 224, 256])
+def test_launch_plan_fits_and_covers(c_in, side):
+    """The kernel's launch plan over the gate's domain: the packed weights
+    and at least two ring stages fit in a block's 227 KB, the grid is one
+    block per SM at most, and the 4 x 64 output tiles cover the output
+    exactly once (the last column tile of 160 and 224 is half outside and
+    masked)."""
+    for n, sms in ((1, 132), (4, 132), (16, 132), (3, 8)):
+        plan = pair_conv.launch_plan((n, c_in, side, side), sms)
+        assert plan["stages"] >= 2 and plan["smem_bytes"] <= pair_conv._SMEM_LIMIT
+        assert plan["smem_bytes"] >= 1024 + 9 * -(-c_in // 64) * 8192 + plan["stages"] * 39936
+        assert plan["stages"] == (3 if c_in <= 64 else 2)
+        assert plan["grid"] == min(plan["tiles"], sms)
+        hits = np.zeros((n, side, -(-side // 64) * 64), np.int64)
+        col_tiles = -(-side // 64)
+        for t in range(plan["tiles"]):
+            x0, rest = (t % col_tiles) * 64, t // col_tiles
+            y0, b = (rest % (side // 4)) * 4, rest // (side // 4)
+            hits[b, y0:y0 + 4, x0:x0 + 64] += 1
+        assert (hits == 1).all()
+    # the smallest gated case of a train step fills the 132 SMs of an H100
+    assert pair_conv.launch_plan((4, 128, 128, 128), 132)["tiles"] >= 132
+
+
+def test_flip_route_and_its_double_backward_on_cpu():
+    """The dx route passes the forward weight with `flip` (the kernel flips
+    and swaps it while packing): the Function's output and its own VJP
+    (dx of dx, and dW through the flip) against autograd through plain
+    PyTorch on the explicitly flipped weight, in float64 bounds of bf16."""
+    rs = np.random.RandomState(11)
+    g = torch.from_numpy(rs.randn(1, 64, 128, 128).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rs.randn(64, 64, 3, 3) / 24).astype(np.float32))
+    r = torch.from_numpy(rs.randn(1, 64, 128, 128).astype(np.float32))
+    gi, wi = g.clone().requires_grad_(True), w.clone().requires_grad_(True)
+    pair_conv.reset_launch_counts()
+    dx = pair_conv._apply(gi, wi, None, "dx", True)
+    want = pair_conv.pair_conv3x3_ref(g, pair_conv.flipped(w).contiguous(), torch.zeros(64))
+    assert torch.equal(dx, want)
+    (dx.float() * r).sum().backward()
+    assert pair_conv.CALLS == {"forward": 0, "dx": 2, "dx_library": 0}
+    gp, wp = g.float().requires_grad_(True), w.clone().requires_grad_(True)
+    y = torch.nn.functional.conv2d(gp, wp.flip(2, 3).transpose(0, 1), padding=1)
+    (y * r).sum().backward()
+    for got, ref in ((gi.grad.float(), gp.grad), (wi.grad, wp.grad)):
+        assert (got - ref).abs().max().item() <= 2e-2 * ref.abs().max().item()

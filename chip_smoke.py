@@ -13,9 +13,12 @@ The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
   1. print the card's name and power limit (nvidia-smi);
   2. build both CUDA kernels from ddgan_torch/csrc/ (sm_90a), one nvcc
      each, started together: fir2x.cu and pair_conv3x3.cu, printing what
-     ptxas reports for each kernel (registers, shared memory, spills);
+     ptxas reports for each kernel (registers, shared memory, spills) and
+     one summary line per kernel;
   3. hold down2x / up2x against their plain PyTorch versions at every
-     flagship shape, f32 and bf16, symmetric and asymmetric taps;
+     flagship shape, f32 and bf16, symmetric and asymmetric taps, and up2x
+     at odd sides (5 x 7: the scalar path) and at D's 4-wide backward
+     shape (4, 512, 4, 4);
   4. build the generator with non-trivial weights (output std > 0.05);
   5. run the T=4 sampler at batch 64 in f32 (TF32 off for matmuls and
      cuDNN) and compare with the port's plain path on the CPU, on the same
@@ -29,7 +32,9 @@ The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
      loop `generate_samples`; the PNGs must appear;
   8. time the sampler (bf16 as the recipe sets it, and f32) and each FIR
      kernel beside its plain version, the one PyTorch call that computes
-     the same function, and its bound;
+     the same function, and its bound; per kernel, the lowest share of the
+     bound over the shapes whose bound is >= 5 us, and the shapes where the
+     library call is faster;
   9. profile two bf16 sampler calls: device time by kernel class and the
      share of a call's time that the device spends in kernels.
 
@@ -41,7 +46,9 @@ attention at 16, n_mlp 3; batch 16):
      its gate, (3, 2, 160, 160) (max-abs <= 1 bf16 ulp of max|ref|), and
      check that gated-out shapes and dtypes raise;
  11. hold down2x / up2x against their plain versions at the 256² shapes,
-     and down2x at bf16 rows of 24 bytes (its scalar path);
+     down2x at bf16 rows of 24 bytes (its scalar path), and up2x at W 6
+     (its scalar path at even sides), at odd H on the vector path and at
+     rows wider than a warp (W 260);
  12. build the full-width generator with weights N(0,1)/sqrt(fan_in): its
      parameter count and output std (> 0.05);
  13. run the T=2 sampler in f32, TF32 off, against the CPU plain path at
@@ -54,7 +61,8 @@ attention at 16, n_mlp 3; batch 16):
  16. time the sampler (samples/s, bf16 and f32) and pair_conv3x3 per shape
      beside its bound, its plain version and the library call
      (`F.conv2d` in bf16, timed only), and the FIR kernels at 256², each
-     with its TFLOP/s or GB/s and its share of the bound;
+     with its TFLOP/s or GB/s and its share of the bound, and the summary
+     lines of phase 8;
  17. profile two bf16 calls, with pair_conv3x3 as its own kernel class.
 
 Training (`ddgan_torch.train.make_train_step`), the CelebA-HQ 256 recipe
@@ -63,7 +71,8 @@ flagship one (DiscriminatorSmall, r1_gamma 0.02, lazy_reg 15, batch 64):
 
  19. down2x / up2x gradients against autograd through their plain versions,
      first order and R1's second order, at DiscriminatorLarge's (batch 4),
-     DiscriminatorSmall's and both generators' shapes, f32 and bf16;
+     DiscriminatorSmall's and both generators' shapes and at odd sides (a
+     down2x output of 3 x 5, an up2x input of 5 x 7), f32 and bf16;
  20. pair_conv3x3's VJP against autograd through its plain version at the
      four gated shapes at batch 4 (dx within 1 bf16 ulp, dW within 2, db
      against float64), the dx route by the gate, and a refused input;
@@ -86,7 +95,8 @@ flagship one (DiscriminatorSmall, r1_gamma 0.02, lazy_reg 15, batch 64):
  25. ms per bf16 step (R1 steps and the others apart), samples/s, peak
      memory, and each kernel's time per step by role beside its bound, its
      plain version and the library call (K2's dx as the step launches it:
-     the forward weight, flipped in the kernel, no bias);
+     the forward weight, flipped in the kernel, no bias), each launch shape
+     on its own line, and per role the summary lines of phase 8;
  26. profile two bf16 256² steps: device time by kernel class, K1 and K2 by
      role, the busy share and the kernel launches per step;
  27. print the result, a `{"kernels": [...]}` line (the forward entries and
@@ -368,6 +378,49 @@ def sampler_ms(call, warmup: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def ptxas_summary(report: str) -> list:
+    """One line per kernel of a ptxas report: registers and spill bytes."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = name = m.group(1)
+            for d in re.finditer(r"\d+", mangled):  # <length><name> in the mangled name
+                end = d.end() + int(d.group())
+                if mangled[d.end():end].endswith("_kernel"):
+                    name = mangled[d.end():end]
+                    t = re.match(r"I(f|13__nv_bfloat16)Lb([01])E", mangled[end:])
+                    if t:
+                        name += (f"<{'float' if t.group(1) == 'f' else 'bf16'}, "
+                                 f"{'vector' if t.group(2) == '1' else 'scalar'}>")
+                    break
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            lines.append(f"{name}: {regs} registers; {spill}")
+            name = None
+    return lines
+
+
+def share_summary(label: str, rows: list) -> dict:
+    """The lowest share of the bound over `rows` whose bound is >= 5 us, and
+    the rows where the library call is faster than the kernel."""
+    big = [r for r in rows if r["bound_ms"] >= 0.005]
+    low = min(big, key=lambda r: r["bound_ms"] / r["ms"]) if big else None
+    slower = [f"{tuple(r['shape'])} {r['dtype']}" for r in rows if r["ms"] >= r["library_ms"]]
+    out = {"lowest_share": low["bound_ms"] / low["ms"] if low else None,
+           "at": f"{tuple(low['shape'])} {low['dtype']}" if low else None,
+           "shapes_with_bound_ge_5us": len(big), "shapes": len(rows),
+           "library_faster_at": slower}
+    print(f"{label}: lowest share of the bound over the {len(big)} of {len(rows)} shapes with a "
+          f"bound >= 5 us: " + (f"{out['lowest_share']:.1%} at {out['at']}" if low else "none")
+          + f"; library call faster at {len(slower)} shapes {slower}")
+    return out
+
+
 def check_fir_kernels(fir2x, shapes_by_kind, max_abs: dict) -> None:
     """Each FIR kernel against its plain version at `shapes_by_kind`, f32
     (max-abs 1e-5) and bf16 (2e-2 of max|ref|), both tap sets."""
@@ -427,6 +480,7 @@ def time_fir_kernels(fir2x, shapes_by_kind, model: str) -> dict:
                       f"{moved / k_ms / 1e6:.0f} GB/s, {b_ms / k_ms:.1%} of its bound")
                 del bufs
         rows_by_kind[name] = rows
+        share_summary(f"{name} ({model})", rows)
     return rows_by_kind
 
 
@@ -876,11 +930,14 @@ def time_launches(fir2x, pair_conv, counts_by_step: dict) -> dict:
                                                  bufs, iters),
                            "library_ms": device_ms(lib, bufs, iters)}
                 row["bound_ms"], row["bound_by"] = pair_bound_ms(shape)
-            timed[(key, shape, dt)] = row
+            timed[(key, shape, dt)] = {**row, "shape": list(shape), "dtype": dt}
             print(f"  {key} {shape} {dt}: kernel {row['ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}), "
                   f"{row['bound_ms'] / row['ms']:.1%} of its bound")
             del bufs
+    for key in sorted({k for k, _, _ in timed}):
+        if key.split(".")[0] in ("down2x", "up2x"):
+            share_summary(key, [r for (k, _, _), r in timed.items() if k == key])
     roles: dict = {}
     for step_name, counts in counts_by_step.items():
         for (key, shape, dt), n in counts.items():
@@ -935,7 +992,7 @@ def main() -> int:
     from ddgan_torch.config import Config
     from ddgan_torch.diffusion import PosteriorCoefficients, sample_from_model_with_noise
     from ddgan_torch.models import NCSNpp
-    from ddgan_torch.ops import fir2x, pair_conv
+    from ddgan_torch.ops import _nvcc, fir2x, pair_conv
     from ddgan_torch.utils import randomize_parameters_
 
     def reset_counts() -> None:
@@ -971,10 +1028,15 @@ def main() -> int:
                 for name, mod in (("fir2x", fir2x), ("pair_conv3x3", pair_conv))}
         build_s = {name: f.result() for name, f in futs.items()}
     print(f"built {build_s} (s); all in {time.perf_counter() - t0:.1f} s")
+    for source, report in sorted(_nvcc.PTXAS.items()):
+        for line in ptxas_summary(report):
+            print(f"ptxas {source}: {line}")
 
     phase("3 FIR kernels against their plain versions, flagship shapes")
     max_abs = {"down2x": 0.0, "up2x": 0.0, "pair_conv3x3": 0.0}
-    check_fir_kernels(fir2x, {"down2x": DOWN_SHAPES, "up2x": UP_SHAPES}, max_abs)
+    # and up2x at odd sides (W 7: the scalar path) and at D's 4-wide VJP shape
+    check_fir_kernels(fir2x, {"down2x": DOWN_SHAPES,
+                              "up2x": UP_SHAPES + [(1, 2, 5, 7), (4, 512, 4, 4)]}, max_abs)
 
     phase("4 flagship generator")
     cfg = flagship_config(Config)
@@ -1116,8 +1178,11 @@ def main() -> int:
     print(f"{len(refused)} gated-out shapes and dtypes raised ValueError")
 
     phase("11 FIR kernels against their plain versions, 256² shapes")
-    # and a down2x input whose bf16 rows are 24 bytes (W 12): the scalar path
-    check_fir_kernels(fir2x, {"down2x": DOWN_SHAPES_256 + [(2, 3, 10, 12)], "up2x": UP_SHAPES_256},
+    # and a down2x input whose bf16 rows are 24 bytes (W 12): the scalar path;
+    # up2x at W 6 (the scalar path at even sides), at odd H on the vector
+    # path, and at rows wider than a warp (halo loads at the warps' edges)
+    check_fir_kernels(fir2x, {"down2x": DOWN_SHAPES_256 + [(2, 3, 10, 12)],
+                              "up2x": UP_SHAPES_256 + [(3, 5, 6, 6), (2, 3, 9, 12), (1, 3, 7, 260)]},
                       max_abs)
 
     phase("12 CelebA-HQ 256 generator, full width")
@@ -1251,7 +1316,9 @@ def main() -> int:
     grad_cases = ([("down2x", s) for s in D_LARGE_DOWN + D_SMALL_DOWN + DOWN_SHAPES]
                   + [("down2x", (TRAIN_BATCH_256,) + s[1:]) for s in DOWN_SHAPES_256]
                   + [("up2x", s) for s in UP_SHAPES]
-                  + [("up2x", (TRAIN_BATCH_256,) + s[1:]) for s in UP_SHAPES_256])
+                  + [("up2x", (TRAIN_BATCH_256,) + s[1:]) for s in UP_SHAPES_256]
+                  # odd sides: a down2x output of 3 x 5 (its VJP an odd-sided up2x)
+                  + [("down2x", (2, 3, 6, 10)), ("up2x", (1, 2, 5, 7))])
     check_fir_grads(fir2x, grad_cases, max_abs)
 
     phase("20 pair_conv3x3 VJP against autograd through its plain version, batch 4")

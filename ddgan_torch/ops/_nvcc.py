@@ -29,6 +29,9 @@ NVCC_FLAGS = [
     "-Xptxas",
     "-v",
 ]
+# what ptxas reported for each source compiled by this process (registers,
+# shared memory, spills), by source name
+PTXAS = {}
 
 
 def find_nvcc() -> str:
@@ -55,6 +58,7 @@ def build(source: str, verbose: bool = False) -> ctypes.CDLL:
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed ({res.returncode}) building {src}:\n{res.stderr}")
+        PTXAS[source] = res.stderr
         if verbose:
             print(res.stderr.strip())
         os.replace(tmp, lib_path)

@@ -2,10 +2,10 @@
 
 Counterpart of `ddgan_tpu/ops/experimental/pallas_upfirdn.py` (`down2x`
 :133, `up2x` :158, kernel `_sep_mxu_kernel` :56). Two patterns of
-upfirdn2d with the 2-D kernel outer(k1d, k1d), 4 taps, H and W even:
+upfirdn2d with the 2-D kernel outer(k1d, k1d), 4 taps:
 
-  * down2x: up=1, down=2, pad=(1,1)  (N, C, H, W) -> (N, C, H/2, W/2)
-  * up2x:   up=2, down=1, pad=(2,1)  (N, C, H, W) -> (N, C, 2H, 2W)
+  * down2x: up=1, down=2, pad=(1,1)  (N, C, H, W) -> (N, C, H/2, W/2), H, W even
+  * up2x:   up=2, down=1, pad=(2,1)  (N, C, H, W) -> (N, C, 2H, 2W), any H, W
 
 `down2x_ref` / `up2x_ref` are the plain versions. `down2x` / `up2x` are
 `torch.autograd.Function`s on every device; only their innermost call
@@ -17,8 +17,8 @@ VJP of down2x is the up2x pattern with the taps reversed, and the VJP of
 up2x is the down2x pattern with the taps reversed, at the same pads and
 with no extra gain. Each backward applies the other Function, so it is
 differentiable in turn, and R1's grad-of-grad through `down2x` launches
-the kernels too. The kernel takes even H and W only, so on a CUDA tensor
-the backward of a down2x whose output has an odd side raises.
+the kernels too. The up2x kernel takes odd sides, as the JAX `up2x` does,
+so the backward of a down2x whose output has an odd side launches it too.
 
 The kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, and loaded with ctypes (`_nvcc.build`).
@@ -96,36 +96,54 @@ def build(verbose: bool = False) -> ctypes.CDLL:
 # --------------------------------------------------------------------------
 # wrappers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Lanes in flight that fill an H100 to a quarter (132 SMs x 512): the down2x
+# Lanes in flight that fill an H100 to a quarter (132 SMs x 512): each
 # plan shortens its row segments until a launch has this many, trading
 # re-read halo rows for parallelism on small tensors.
-_DOWN_TARGET_LANES = 132 * 512
-_DOWN_MAX_ROWS = 16
+_TARGET_LANES = 132 * 512
+_MAX_ROWS = 16
+
+
+def _stencil_plan(planes: int, n_rows: int, lanes_per_row: int, vec: bool) -> dict:
+    """Lane groups, rows per lane and path of a streaming stencil launch
+    whose lanes walk `n_rows` rows of each of `planes` planes, a row strip
+    taking `lanes_per_row` lanes. A group is that many rounded up to a
+    power of two (to a multiple of 32 past one warp), so groups never
+    straddle a warp. Each lane walks at most 16 rows, halved while the
+    launch would have fewer than `_TARGET_LANES` lanes."""
+    if lanes_per_row <= 32:
+        group = 1 << (lanes_per_row - 1).bit_length()
+    else:
+        group = 32 * -(-lanes_per_row // 32)
+    rows = min(n_rows, _MAX_ROWS)
+    while rows > 1 and planes * -(-n_rows // rows) * group < _TARGET_LANES:
+        rows = (rows + 1) // 2
+    segs = -(-n_rows // rows)
+    return {"vec": bool(vec), "group": group, "rows": rows, "segments": segs,
+            "lanes": planes * segs * group}
 
 
 def down2x_plan(planes: int, h: int, w: int, aligned: bool) -> dict:
     """The launch plan of the down2x kernel for `planes` planes of h x w.
 
     A lane owns 4 adjacent outputs of a row (8 input columns), so a row
-    strip takes ceil(w / 8) lanes; a group is that many rounded up to a
-    power of two (to a multiple of 32 past one warp), so groups never
-    straddle a warp. Each lane walks down `rows` output rows: at most 16,
-    halved while the launch would have fewer than `_DOWN_TARGET_LANES`
-    lanes. The vector path (16-byte loads, one store per strip) needs every
-    row to start on a 16-byte boundary in both dtypes: w % 8 == 0 and
-    16-byte aligned tensors (`aligned`); otherwise the scalar path."""
-    oh = h // 2
-    lanes_per_row = -(-w // 8)
-    if lanes_per_row <= 32:
-        group = 1 << (lanes_per_row - 1).bit_length()
-    else:
-        group = 32 * -(-lanes_per_row // 32)
-    rows = min(oh, _DOWN_MAX_ROWS)
-    while rows > 1 and planes * -(-oh // rows) * group < _DOWN_TARGET_LANES:
-        rows = (rows + 1) // 2
-    segs = -(-oh // rows)
-    return {"vec": bool(w % 8 == 0 and aligned), "group": group, "rows": rows,
-            "segments": segs, "lanes": planes * segs * group}
+    strip takes ceil(w / 8) lanes, and walks down `rows` output rows
+    (`_stencil_plan`). The vector path (16-byte loads, one store per strip)
+    needs every row to start on a 16-byte boundary in both dtypes: w % 8 ==
+    0 and 16-byte aligned tensors (`aligned`); otherwise the scalar path."""
+    return _stencil_plan(planes, h // 2, -(-w // 8), w % 8 == 0 and aligned)
+
+
+def up2x_plan(planes: int, h: int, w: int, aligned: bool) -> dict:
+    """The launch plan of the up2x kernel for `planes` planes of h x w (any
+    h, w >= 1).
+
+    A lane owns 4 adjacent input columns of a row (8 output columns), so a
+    row strip takes ceil(w / 4) lanes, and walks down `rows` input rows,
+    writing two output rows for each (`_stencil_plan`). The vector path
+    (an 8- or 16-byte load, 16-byte stores) needs every input and output row
+    to start on its vector's boundary: w % 4 == 0 and 16-byte aligned
+    tensors (`aligned`); otherwise the scalar path."""
+    return _stencil_plan(planes, h, -(-w // 4), w % 4 == 0 and aligned)
 
 
 def _check(x: torch.Tensor, k1d, name: str) -> None:
@@ -137,7 +155,7 @@ def _check(x: torch.Tensor, k1d, name: str) -> None:
         raise ValueError(f"{name}: expected (N, C, H, W), got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous (NCHW)")
-    if x.shape[2] % 2 or x.shape[3] % 2:
+    if name == "down2x" and (x.shape[2] % 2 or x.shape[3] % 2):
         raise ValueError(f"{name}: H and W must be even, got {tuple(x.shape)}")
     if len(k1d) != 4:
         raise ValueError(f"{name}: needs 4 taps, got {len(k1d)}")
@@ -153,9 +171,8 @@ def _launch(up: int, x: torch.Tensor, k1d, out_hw, name: str) -> torch.Tensor:
         return y
     lib = build()
     taps = [float(v) for v in k1d]
-    plan = {"vec": False, "group": 0, "rows": 0}  # up2x plans its own launch
-    if not up:
-        plan = down2x_plan(n * c, h, w, x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    plan = (up2x_plan if up else down2x_plan)(n * c, h, w, aligned)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ddgan_fir2x(

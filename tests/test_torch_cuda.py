@@ -8,7 +8,7 @@ machine without JAX they run as
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 
 fir2x: shapes go beyond the flagship's (which `chip_smoke.py` checks) to
-partial output tiles, odd output sizes and blocks that hold several planes.
+partial row strips, odd output sizes and warps that hold several planes.
 Tolerances: max-abs 1e-5 in float32 (the same f32 sums in another order,
 TF32 off), 2e-2 of max|ref| in bfloat16 (one rounding of the output).
 
@@ -18,8 +18,10 @@ tile; the dx route's in-kernel flip, f32 and bf16 weights and a null
 bias. Both sides sum in f32 (TF32 off) and round once to bf16, so they
 differ by at most one bf16 rounding step: max-abs <= 1 ulp of max|ref|.
 
-down2x also on its scalar path (rows that do not start on 16 bytes) and
-with many small planes per warp.
+down2x and up2x also on their scalar paths (rows that do not start on
+16 bytes) and with many small planes per warp; up2x at odd sides, rows
+wider than a warp and a single row, and launched from a fresh thread and
+from autograd's backward thread.
 
 Gradients: down2x / up2x to first and second order against autograd
 through their plain versions (max-abs 1e-5 of max|ref| in f32), the
@@ -107,6 +109,72 @@ def test_down2x_paths_match_plain(cuda_device, shape, dtype, fir, aligned):
     bound = 1e-5 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
     assert got.dtype == dtype and got.shape == want.shape
     assert (got.float() - want).abs().max().item() <= bound
+
+
+# up2x shapes for the streaming kernel's paths: odd sides, W 4 with many
+# planes per warp, W % 4 != 0 (the scalar path), rows wider than a warp
+# (W 260: halo loads at the warps' edges), a single row
+UP_EDGE_SHAPES = [(1, 2, 5, 7), (2, 3, 9, 12), (64, 256, 4, 4), (3, 5, 6, 6), (1, 3, 7, 260),
+                  (2, 3, 1, 16), (4, 4, 3, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", UP_EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "offset"])
+def test_up2x_paths_match_plain(cuda_device, shape, dtype, fir, aligned):
+    """up2x on the vector and the scalar path: an input that starts one
+    element past a 16-byte boundary takes the scalar path whatever W is."""
+    x = _randn(shape, seed=6).to(cuda_device, dtype)
+    if not aligned:
+        buf = torch.empty(x.numel() + 1, device=cuda_device, dtype=dtype)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    plan = fir2x.up2x_plan(shape[0] * shape[1], shape[2], shape[3], x.data_ptr() % 16 == 0)
+    assert plan["vec"] == (aligned and shape[3] % 4 == 0)
+    k = _taps(fir, 2)
+    before = fir2x.LAUNCHES["up2x"]
+    with torch.no_grad():
+        got, want = fir2x.up2x(x, k), fir2x.up2x_ref(x.float(), k)
+    torch.cuda.synchronize()
+    assert fir2x.LAUNCHES["up2x"] == before + 1
+    bound = 1e-5 if dtype == torch.float32 else 2e-2 * want.abs().max().item()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want).abs().max().item() <= bound
+
+
+@pytest.mark.cuda
+def test_up2x_launches_from_a_fresh_thread_and_the_backward_thread(cuda_device):
+    """up2x launched from a thread that has made no CUDA call yet, and as
+    down2x's VJP on autograd's backward thread (a down2x output of odd
+    sides, 3 x 5)."""
+    import threading
+
+    k = _taps(FIR_ASYM, 2)
+    x = _randn((2, 3, 5, 8), seed=7).to(cuda_device)
+    out = {}
+
+    def run():
+        try:
+            out["y"] = fir2x.up2x(x, k)
+        except Exception as exc:  # reported below, on the test's thread
+            out["error"] = exc
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in out, out.get("error")
+    torch.cuda.synchronize()
+    assert (out["y"] - fir2x.up2x_ref(x, k)).abs().max().item() <= 1e-5
+
+    xd = _randn((2, 3, 6, 10), seed=8).to(cuda_device).requires_grad_(True)
+    g = _randn((2, 3, 3, 5), seed=9).to(cuda_device)
+    before = fir2x.LAUNCHES["up2x"]
+    fir2x.down2x(xd, _taps(FIR_ASYM)).backward(g)
+    torch.cuda.synchronize()
+    assert fir2x.LAUNCHES["up2x"] == before + 1
+    assert (xd.grad - fir2x.up2x_ref(g, _taps(FIR_ASYM)[::-1])).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda
@@ -284,10 +352,11 @@ def test_conv3x3_dispatches_to_the_kernel(cuda_device):
 
 
 # (pattern, NCHW input) at the train step's shapes: DiscriminatorLarge at
-# batch 4 and the 256² generator's up path
+# batch 4 and the 256² generator's up path; and odd sides: a down2x whose
+# output is 3 x 5 (its VJP an odd-sided up2x), an up2x of 5 x 7
 FIR_GRAD_CASES = [("down2x", (4, 256, 256, 256)), ("down2x", (4, 512, 32, 32)),
                   ("up2x", (4, 64, 128, 128)), ("down2x", (3, 5, 12, 20)),
-                  ("up2x", (2, 3, 6, 4))]
+                  ("up2x", (2, 3, 6, 4)), ("down2x", (2, 3, 6, 10)), ("up2x", (1, 2, 5, 7))]
 
 
 @pytest.mark.cuda

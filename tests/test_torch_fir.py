@@ -63,8 +63,10 @@ def test_down2x_matches_pallas(fir, shape):
 
 
 @pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
-@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 8, 16, 128), (2, 4, 4, 5)])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 3), (1, 8, 16, 128), (2, 4, 4, 5), (1, 3, 5, 4),
+                                   (2, 5, 3, 3)])
 def test_up2x_matches_pallas(fir, shape):
+    """Odd sides too: the JAX `up2x` takes them, and so does the kernel."""
     x = randn(3, *shape)
     want = np.asarray(jup2x(jnp.asarray(x), _k1d(fir, factor=2)))
     for fn in (fir2x.up2x_ref, fir2x.up2x):
@@ -117,20 +119,25 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
 
 
 _GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
-# (pattern, NHWC input shape, taps' factor); the ports and the JAX functions
+# case -> (pattern, NHWC input shape, taps' factor, NHWC shape for the f64
+# checks); the ports and the JAX functions by pattern
 _PATTERNS = {
-    "down2x": ((1, 8, 8, 3), 1, fir2x.down2x, jdown2x),
-    "up2x": ((1, 4, 6, 3), 2, fir2x.up2x, jup2x),
+    "down2x": ("down2x", (1, 8, 8, 3), 1, (1, 4, 4, 2)),
+    "up2x": ("up2x", (1, 4, 6, 3), 2, (1, 2, 4, 2)),
+    # output 3 x 5: the VJP is an up2x of odd sides
+    "down2x_odd_out": ("down2x", (1, 6, 10, 3), 1, (1, 6, 2, 1)),
 }
+_FNS = {"down2x": (fir2x.down2x, jdown2x), "up2x": (fir2x.up2x, jup2x)}
 
 
 @pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
-@pytest.mark.parametrize("name", sorted(_PATTERNS))
-def test_gradients_match_pallas_to_second_order(name, fir):
+@pytest.mark.parametrize("case", sorted(_PATTERNS))
+def test_gradients_match_pallas_to_second_order(case, fir):
     """As `tests/test_pallas_fir.py::test_down2x_gradients_match_xla`: the
     grad of sum(f(x)^2), and the grad of the squared norm of that grad (the
     R1 grad-of-grad), against `jax.grad` through the Pallas function."""
-    shape, factor, fn, jfn = _PATTERNS[name]
+    name, shape, factor, _ = _PATTERNS[case]
+    fn, jfn = _FNS[name]
     x = randn(3, *shape)
     k = _k1d(fir, factor)
 
@@ -157,11 +164,11 @@ def test_gradients_match_pallas_to_second_order(name, fir):
 
 
 @pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
-@pytest.mark.parametrize("name", sorted(_PATTERNS))
-def test_gradcheck_and_gradgradcheck_in_f64(name, fir):
-    _, factor, fn, _ = _PATTERNS[name]
+@pytest.mark.parametrize("case", sorted(_PATTERNS))
+def test_gradcheck_and_gradgradcheck_in_f64(case, fir):
+    name, _, factor, shape = _PATTERNS[case]
+    fn = _FNS[name][0]
     # small planes: the checks differentiate numerically element by element
-    shape = (1, 4, 4, 2) if name == "down2x" else (1, 2, 4, 2)
     x = torch.from_numpy(randn(7, *shape).astype(np.float64).transpose(0, 3, 1, 2).copy())
     k = _k1d(fir, factor)
     x.requires_grad_(True)
@@ -193,7 +200,7 @@ def test_down2x_plan_covers_every_output_once(shape):
     lanes_per_row = -(-w // 8)
     assert group >= lanes_per_row and (32 % group == 0 if group <= 32 else group % 32 == 0)
     assert 1 <= rows <= 16 and segs * rows >= oh > (segs - 1) * rows
-    assert plan["lanes"] >= fir2x._DOWN_TARGET_LANES or rows == 1
+    assert plan["lanes"] >= fir2x._TARGET_LANES or rows == 1
     gid = np.arange(plan["lanes"])
     j, unit = gid % group, gid // group
     seg, p = unit % segs, unit // segs
@@ -205,4 +212,56 @@ def test_down2x_plan_covers_every_output_once(shape):
             col = 4 * j + t
             ok = live & (r < oh) & (col < ow)
             np.add.at(hits, (p[ok], r[ok], col[ok]), 1)
+    assert (hits == 1).all()
+
+
+# up2x inputs (NCHW) of the two recipes' samplers and train steps, as G's
+# up-path forward (flagship, 256²) and as down2x's VJP (DiscriminatorLarge
+# at batch 4), and edge shapes: odd sides, W 2 and 4, W % 4 != 0, rows
+# wider than a warp, one plane, one row
+_UP_PLAN_SHAPES = [(64, 256, 4, 4), (64, 256, 8, 8), (64, 256, 16, 16), (16, 256, 8, 8),
+                   (16, 256, 16, 16), (16, 128, 32, 32), (16, 128, 64, 64), (16, 64, 128, 128),
+                   (4, 512, 4, 4), (4, 512, 8, 8), (4, 512, 16, 16), (4, 512, 32, 32),
+                   (4, 512, 64, 64), (4, 256, 128, 128), (1, 2, 5, 7), (2, 5, 3, 3),
+                   (3, 4, 6, 2), (1, 37, 4, 4), (2, 3, 10, 6), (1, 3, 7, 260), (1, 1, 9, 12),
+                   (2, 3, 1, 9)]
+
+
+@pytest.mark.parametrize("shape", _UP_PLAN_SHAPES)
+def test_up2x_plan_covers_every_output_once(shape):
+    """The launch plan of the up2x kernel, walked as the kernel walks it:
+    lane `gid` is strip j = gid % group of input row segment `unit` = gid //
+    group; live lanes write output columns 8j..8j+7 of rows 2m and 2m+1 for
+    the input rows m = seg*rows .. +rows-1. Every output is written exactly
+    once (walked over the first, second and last planes: lanes map to
+    planes alike), groups never straddle a warp, and small launches are
+    split until they fill the card or a lane takes one row."""
+    n, c, h, w = shape
+    planes, oh, ow = n * c, 2 * h, 2 * w
+    for aligned in (True, False):
+        plan = fir2x.up2x_plan(planes, h, w, aligned)
+        assert plan["vec"] == (aligned and w % 4 == 0)
+    group, rows, segs = plan["group"], plan["rows"], plan["segments"]
+    lanes_per_row = -(-w // 4)
+    assert group >= lanes_per_row and (32 % group == 0 if group <= 32 else group % 32 == 0)
+    assert 1 <= rows <= 16 and segs * rows >= h > (segs - 1) * rows
+    assert plan["lanes"] == planes * segs * group
+    assert plan["lanes"] >= fir2x._TARGET_LANES or rows == 1
+    walked = sorted({0, min(1, planes - 1), planes - 1})
+    per_plane = segs * group
+    gid = np.concatenate([np.arange(p * per_plane, (p + 1) * per_plane) for p in walked])
+    j, unit = gid % group, gid // group
+    seg, p = unit % segs, unit // segs
+    live = (p < planes) & (j < lanes_per_row)
+    slot = {q: i for i, q in enumerate(walked)}
+    plane_slot = np.array([slot.get(int(q), -1) for q in p])
+    idx = []
+    for i in range(rows):
+        m = seg * rows + i
+        for dr in (0, 1):
+            for t in range(8):
+                col = 8 * j + t
+                ok = live & (m < h) & (col < ow)
+                idx.append((plane_slot[ok] * oh + 2 * m[ok] + dr) * ow + col[ok])
+    hits = np.bincount(np.concatenate(idx), minlength=len(walked) * oh * ow)
     assert (hits == 1).all()

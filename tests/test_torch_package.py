@@ -117,3 +117,57 @@ def test_chip_smoke_fails_without_a_gpu_or_a_checkout(where, tmp_path):
                          text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout and '"kernels"' not in res.stdout
+
+
+def _chip_smoke():
+    """`chip_smoke.py` as a module (it runs nothing on import)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__86e8aef5_8_fir2x_cu_e5131aab11up2x_\
+kernelI13__nv_bfloat16Lb1EEEvPKT_PS2_iiiiiiiiiNS_4TapsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN40_GLOBAL__N__86e8aef5_8_fir2x_cu_e5131aab11up2x_kernel
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN40_GLOBAL__N__86e8aef5_8_fir2x_cu_e5131aab13down2x_\
+kernelIfLb0EEEvPKT_PS1_iiiiiiiiiNS_4TapsE' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 45 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__17c65626_15_pair_conv3x3_cu_42548afb19\
+pair_conv3x3_kernelE14CUtensorMap_stS0_PKvPKfP13__nv_bfloat16iiiiiiiii' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 123 registers, used 2 barriers
+"""
+
+
+def test_chip_smoke_summarises_ptxas_per_kernel():
+    spill0 = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+    assert _chip_smoke().ptxas_summary(_PTXAS_REPORT) == [
+        f"up2x_kernel<bf16, vector>: 40 registers; {spill0}",
+        f"down2x_kernel<float, scalar>: 45 registers; {spill0}",
+        "pair_conv3x3_kernel: 123 registers; 0 bytes stack frame, 8 bytes spill stores, "
+        "8 bytes spill loads",
+    ]
+
+
+def test_chip_smoke_share_summary_reads_the_bound_criterion():
+    """The lowest share of the bound counts only shapes whose bound is >= 5
+    us; every shape where the library call is not slower is listed."""
+    rows = [{"shape": [4, 64, 128, 128], "dtype": "bfloat16", "ms": 0.02, "library_ms": 0.4,
+             "bound_ms": 0.0125},
+            {"shape": [4, 64, 128, 128], "dtype": "float32", "ms": 0.05, "library_ms": 0.4,
+             "bound_ms": 0.025},
+            {"shape": [4, 512, 4, 4], "dtype": "bfloat16", "ms": 0.004, "library_ms": 0.004,
+             "bound_ms": 0.0001}]
+    out = _chip_smoke().share_summary("up2x", rows)
+    assert out["lowest_share"] == pytest.approx(0.5) and out["at"] == "(4, 64, 128, 128) float32"
+    assert out["shapes_with_bound_ge_5us"] == 2 and out["shapes"] == 3
+    assert out["library_faster_at"] == ["(4, 512, 4, 4) bfloat16"]
+    assert _chip_smoke().share_summary("none", rows[2:])["lowest_share"] is None

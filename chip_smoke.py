@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
-PyTorch built for CUDA. It drives the port's two sampler paths and its two
-train steps with seeded weights and fails (non-zero exit) if any phase
-fails. Each phase prints its wall time.
+PyTorch built for CUDA. It drives the port's two sampler paths, its two
+train steps and its train loop through both train CLIs, with seeded
+weights, and fails (non-zero exit) if any phase fails. Each phase prints
+its wall time.
 
 The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
 
-  1. print the card's name and power limit (nvidia-smi);
+  1. print the card's name and power limit (nvidia-smi), and whether PIL,
+     lmdb and torchvision import here (each tried in a subprocess; the
+     script uses none of them);
   2. build both CUDA kernels from ddgan_torch/csrc/ (sm_90a), one nvcc
      each, started together: fir2x.cu and pair_conv3x3.cu, printing what
      ptxas reports for each kernel (registers, shared memory, spills) and
@@ -99,8 +102,32 @@ flagship one (DiscriminatorSmall, r1_gamma 0.02, lazy_reg 15, batch 64):
      on its own line, and per role the summary lines of phase 8;
  26. profile two bf16 256² steps: device time by kernel class, K1 and K2 by
      role, the busy share and the kernel launches per step;
- 27. print the result, a `{"kernels": [...]}` line (the forward entries and
-     one per backward role), and the `{"ok": true, ...}` line last.
+
+The train loop (`ddgan_torch.train.loop`) through the CLIs, each run in a
+temporary working directory whose ./configs/config.json it writes:
+
+ 27. the flagship recipe in bf16 at batch 64 on `synthetic` 32² data
+     through `python -m ddgan_torch.cli.train_cli --use_config_file True`
+     in a subprocess (6 epochs of 8 steps, netG every epoch, R1 at steps 0,
+     15, 30 and 45), killed with SIGKILL once losses.json holds three epochs;
+     then the same command with --resume in this process: it must load the
+     checkpoint, keep losses.json's entries up to that epoch verbatim and
+     end it at epoch 6, write content.pth with global_step 48 and netG
+     files that load with strict=True, and launch K1 per
+     `expected_fir_calls` for each of its steps; the sampler CLI then
+     writes 64 PNGs from the last netG_*.pth;
+ 28. the CelebA-HQ 256 recipe in bf16 at batch 4 on `synthetic` 256² data
+     through `ddgan_torch.cli.main_cli` in this process (3 epochs of 4
+     steps): K2 64 launches a step (46 forward, 18 dx) and K1 per
+     `expected_fir_calls`, then the sampler CLI at 256²; both phases print
+     the loop's ms per step without the epoch-end saves (from its epoch
+     lines; phase 27 also from the subprocess, a fresh process) beside
+     phase 25's bare step and the bare step timed on the run's own state
+     right after it, for the same mix of R1 steps, samples/s, and the bytes
+     and seconds of each checkpoint write and of the resume's read;
+ 29. print the result, a `{"kernels": [...]}` line (the forward entries and
+     one per backward role, with the launches of every driven path), and
+     the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a CUDA device or outside a checkout.
@@ -112,6 +139,8 @@ import copy
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -380,8 +409,6 @@ def sampler_ms(call, warmup: int, iters: int) -> float:
 
 def ptxas_summary(report: str) -> list:
     """One line per kernel of a ptxas report: registers and spill bytes."""
-    import re
-
     lines, name, spill = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -980,6 +1007,357 @@ def time_steps(state, step, real, rng, n: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the train loop through the CLIs
+LOOP_ITERS = 8  # flagship steps an epoch (batch 64): 6 epochs, R1 at steps 0, 15, 30 and 45
+LOOP_EPOCHS = 5  # num_epoch: epochs 0..5
+LOOP_ITERS_256 = 4  # CelebA-HQ 256 steps an epoch (batch 4): 3 epochs, R1 at steps 0 and 10
+LOOP_EPOCHS_256 = 2
+EPOCH_LINE = re.compile(r"\[epoch (\d+)\] (\d+) iters in ([0-9.]+)s \(.*\), saves ([0-9.]+)s")
+
+
+class Tee:
+    """While active, what is printed goes to stdout and into a buffer (the
+    loop's and the CLIs' own lines, read by the checks)."""
+
+    def __enter__(self):
+        self._out, self.parts = sys.stdout, []
+        sys.stdout = self
+        return self
+
+    def write(self, s: str) -> int:
+        self.parts.append(s)
+        return self._out.write(s)
+
+    def flush(self) -> None:
+        self._out.flush()
+
+    def __exit__(self, *exc):
+        sys.stdout = self._out
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+class CheckpointIO:
+    """While active, times each checkpoint write and read that the loop makes
+    (`ddgan_torch.train.checkpoint`'s functions wrapped), with the file's
+    bytes. A write's time includes the copy of the state to the host."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.rows = ckpt, []
+
+    def __enter__(self):
+        c = self.ckpt
+        self._saved = (c.save_content, c.save_netg, c.load_content)
+
+        def timed(op, fn, path_of):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                path = path_of(*args)
+                self.rows.append({"op": op, "file": path.name, "s": time.perf_counter() - t0,
+                                  "bytes": path.stat().st_size})
+                return out
+            return call
+
+        c.save_content = timed("write", c.save_content, lambda exp, *_: Path(exp) / "content.pth")
+        c.save_netg = timed("write", c.save_netg,
+                            lambda exp, epoch, *_: Path(exp) / f"netG_{epoch}.pth")
+        c.load_content = timed("read", c.load_content, lambda exp, *_: Path(exp) / "content.pth")
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save_content, self.ckpt.save_netg, self.ckpt.load_content = self._saved
+
+    def summary(self) -> dict:
+        out = {}
+        for r in self.rows:
+            key = f"{r['op']} {'netG_*.pth' if r['file'].startswith('netG_') else r['file']}"
+            row = out.setdefault(key, {"count": 0, "bytes": r["bytes"], "s": []})
+            row["count"] += 1
+            row["s"].append(r["s"])
+        for row in out.values():
+            row["mean_s"] = float(np.mean(row["s"]))
+            row["gb_per_s"] = row["bytes"] / row["mean_s"] / 1e9
+        return out
+
+
+def epoch_times(log: str) -> list:
+    """The loop's per-epoch lines: epoch, iterations, seconds of the steps
+    (up to the epoch's loss fetch, which waits for the device) and of the
+    saves after them."""
+    return [{"epoch": int(m[1]), "iters": int(m[2]), "s": float(m[3]), "saves_s": float(m[4])}
+            for m in EPOCH_LINE.finditer(log)]
+
+
+def loop_vs_bare(epochs: list, limited: int, lazy_reg: int, bares: dict, batch: int) -> list:
+    """Loop ms per step without the saves, per epoch after the first of a
+    process (its first steps warm up), beside each bare step time of
+    `bares` (label -> `time_steps` result) for the same mix of R1 steps and
+    others."""
+    rows = []
+    for e in epochs[1:]:
+        first = e["epoch"] * limited
+        n_r1 = sum(1 for s in range(first, first + e["iters"]) if s % lazy_reg == 0)
+        ms = 1e3 * e["s"] / e["iters"]
+        row = {"epoch": e["epoch"], "r1_steps": n_r1, "loop_ms_per_step": ms,
+               "samples_per_s": batch / ms * 1e3, "saves_s": e["saves_s"]}
+        for label, bare in bares.items():
+            bare_ms = (n_r1 * bare["r1_step"] + (e["iters"] - n_r1) * bare["plain_step"]) \
+                / e["iters"]
+            row[f"{label}_ms_per_step"], row[f"loop_over_{label}"] = bare_ms, ms / bare_ms
+        rows.append(row)
+    return rows
+
+
+def bare_step_ms(cfg, state) -> dict:
+    """`time_steps` of the loop's own final state in this process, right
+    after its run: the bare step beside the loop with the host as it is
+    now (the host-bound step's time drifts between phases)."""
+    from ddgan_torch.diffusion import DiffusionCoefficients, PosteriorCoefficients
+    from ddgan_torch.train import make_train_step
+
+    dev = next(state.gen.parameters()).device
+    step = make_train_step(
+        DiffusionCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev),
+        PosteriorCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev),
+        num_timesteps=cfg.num_timesteps, nz=cfg.nz, r1_gamma=cfg.r1_gamma, lazy_reg=cfg.lazy_reg,
+        ema_decay=cfg.ema_decay, use_ema=True)
+    return time_steps(state, step, real_batch(cfg, cfg.batch_size, 30).to(dev),
+                      torch.Generator(device=dev).manual_seed(31), n=4)
+
+
+def expected_run_calls(steps, lazy_reg: int, n_d: int, n_g: int, shared: bool) -> dict:
+    """`expected_fir_calls` summed over the global steps `steps`."""
+    total: dict = {}
+    for s in steps:
+        for name, roles in expected_fir_calls(n_d, n_g, s % lazy_reg == 0, shared).items():
+            for role, n in roles.items():
+                total.setdefault(name, {}).setdefault(role, 0)
+                total[name][role] += n
+    return total
+
+
+def run_until_epochs(cmd: list, cwd: Path, losses: Path, epochs: int, timeout_s: float) -> dict:
+    """Start `cmd` in `cwd` with this checkout on PYTHONPATH and SIGKILL it
+    once `losses` (written by replacement, so never read half way) holds
+    `epochs` entries. Returns those entries, the log and the seconds."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1")  # the log keeps what a kill interrupts
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+    log_path = cwd / "train_cli.log"
+    t0 = time.perf_counter()
+    entries: list = []
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdin=subprocess.DEVNULL, stdout=log,
+                                stderr=subprocess.STDOUT)
+        try:
+            while len(entries) < epochs:
+                if proc.poll() is not None:
+                    raise AssertionError(f"train CLI exited ({proc.returncode}) before {epochs} "
+                                         f"epochs:\n{log_path.read_text()[-4000:]}")
+                check(time.perf_counter() - t0 < timeout_s, f"train CLI: no {epochs} epochs "
+                      f"in {timeout_s} s:\n{log_path.read_text()[-4000:]}")
+                time.sleep(0.05)
+                if losses.exists():
+                    entries = json.loads(losses.read_text())
+        finally:
+            proc.kill()
+            proc.wait()
+    return {"losses": entries, "log": log_path.read_text(), "s": time.perf_counter() - t0,
+            "returncode": proc.returncode}
+
+
+def check_netg_files(exp: Path, cfg, epochs) -> int:
+    """Every netG_{e}.pth loads into NCSNpp with strict=True; returns the count."""
+    from ddgan_torch.compat import load_netg_pth
+    from ddgan_torch.models import NCSNpp
+
+    net = NCSNpp.from_config(cfg)
+    for e in epochs:
+        net.load_state_dict(load_netg_pth(str(exp / f"netG_{e}.pth")), strict=True)
+    return len(epochs)
+
+
+def check_cli_pngs(tmp: Path, dataset: str, n: int, side: int) -> int:
+    pngs = sorted((tmp / "generated_samples" / dataset).glob("sample_*.png"))
+    check(len(pngs) == n, f"sampler CLI wrote {len(pngs)} PNGs, expected {n}")
+    head = pngs[0].read_bytes()[:24]
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[16:24] == side.to_bytes(4, "big") * 2,
+          f"sampler CLI PNG is not {side}x{side}")
+    return len(pngs)
+
+
+
+def _reset(fir2x, pair_conv) -> None:
+    fir2x.reset_launch_counts()
+    pair_conv.reset_launch_counts()
+
+
+def _calls(fir2x, pair_conv) -> dict:
+    return {"fir": {k: dict(v) for k, v in fir2x.CALLS.items()},
+            "pair_conv3x3": dict(pair_conv.CALLS)}
+
+
+def check_loop_run(cfg, exp: Path, steps, fir2x, pair_conv, k2_per_step: dict | None) -> dict:
+    """After a loop run over the global `steps`: the kernels' calls and
+    launches by role against the per-step counts of phases 23-25, every
+    netG_{e}.pth against NCSNpp (strict), losses.json's epochs, and
+    content.pth's counters. Returns the calls."""
+    torch.cuda.synchronize()
+    calls = _calls(fir2x, pair_conv)
+    n_d = 3 if str(cfg.disc_small).lower() == "yes" else 6
+    want = expected_run_calls(steps, cfg.lazy_reg, n_d, len(cfg.ch_mult) - 1,
+                              shared=cfg.image_size >= 256)
+    check(calls["fir"] == want and fir2x.LAUNCHES == {k: sum(v.values()) for k, v in want.items()},
+          f"loop: FIR calls {calls['fir']}, launches {fir2x.LAUNCHES}, expected {want}")
+    k2 = {r: n * len(steps) for r, n in (k2_per_step or dict.fromkeys(pair_conv.CALLS, 0)).items()}
+    check(calls["pair_conv3x3"] == k2
+          and pair_conv.LAUNCHES["pair_conv3x3"] == k2["forward"] + k2["dx"],
+          f"loop: pair_conv3x3 {calls['pair_conv3x3']} {pair_conv.LAUNCHES}, expected {k2}")
+    n_epochs = cfg.num_epoch + 1
+    losses = json.loads((exp / "losses.json").read_text())
+    check([e["epoch"] for e in losses] == list(range(1, n_epochs + 1))
+          and all(np.isfinite([e["G_loss"], e["D_loss"]]).all() for e in losses),
+          f"losses.json: {losses}")
+    raw = torch.load(exp / "content.pth", map_location="cpu", mmap=True, weights_only=False)
+    check(raw["global_step"] == n_epochs * cfg.limited_iter and raw["epoch"] == n_epochs,
+          f"content.pth: step {raw['global_step']}, epoch {raw['epoch']}")
+    del raw
+    check_netg_files(exp, cfg, range(n_epochs))
+    return calls
+
+
+def sample_from_loop(cfg, tmp: Path, fir2x, pair_conv, want_launches: dict) -> int:
+    """The sampler CLI on the run's last netG_*.pth: its PNGs and launches."""
+    from ddgan_torch.cli import test_cli
+
+    _reset(fir2x, pair_conv)
+    test_cli.main(["--dataset", cfg.dataset, "--exp", cfg.exp, "--epoch_id", str(cfg.num_epoch),
+                   "--seed", "0"])
+    torch.cuda.synchronize()
+    got = {**fir2x.LAUNCHES, **pair_conv.LAUNCHES}
+    check(got == want_launches, f"sampler CLI: launches {got}, expected {want_launches}")
+    return check_cli_pngs(tmp, cfg.dataset, cfg.batch_size, cfg.image_size)
+
+
+def _config_dir(tmp: Path, cfg) -> None:
+    (tmp / "configs").mkdir()
+    # synthetic_size is not a schema key: the config file carries it
+    (tmp / "configs" / "config.json").write_text(json.dumps(
+        {**cfg.to_dict(), "synthetic_size": cfg.limited_iter * cfg.batch_size}))
+
+
+def loop_through_train_cli(cfg, bare: dict, fir2x, pair_conv, sample_launches: dict,
+                           timeout_s: float = 400) -> dict:
+    """`cfg` through `python -m ddgan_torch.cli.train_cli --use_config_file
+    True` in a subprocess, killed once losses.json holds three epochs (so
+    that the subprocess prints a timed epoch after its first), then
+    the same command with --resume in this process (launches counted), the
+    checks of `check_loop_run` and of the kept loss history, and the
+    sampler CLI on the last netG_*.pth."""
+    from ddgan_torch.cli import train_cli
+    from ddgan_torch.train import checkpoint as ckpt
+
+    argv = ["--use_config_file", "True", "--exp", cfg.exp, "--num_epoch", str(cfg.num_epoch)]
+    n_steps = (cfg.num_epoch + 1) * cfg.limited_iter
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / cfg.dataset / cfg.exp
+        _config_dir(tmp, cfg)
+        killed = run_until_epochs([sys.executable, "-m", "ddgan_torch.cli.train_cli", *argv], tmp,
+                                  exp / "losses.json", epochs=3, timeout_s=timeout_s)
+        check(killed["returncode"] == -signal.SIGKILL,
+              f"train CLI ended with {killed['returncode']}")
+        pre = killed["losses"]
+        print(f"train CLI subprocess killed (SIGKILL) after {killed['s']:.1f} s with "
+              f"{len(pre)} epochs in losses.json")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            _reset(fir2x, pair_conv)
+            with Tee() as tee, CheckpointIO(ckpt) as io_:
+                state = train_cli.main(argv + ["--resume"])
+            m = re.search(r"=> Loaded checkpoint \(epoch (\d+)\)", tee.text())
+            check(m is not None and int(m[1]) >= 1, "the resumed run loaded no checkpoint")
+            start = int(m[1])
+            calls = check_loop_run(cfg, exp, range(start * cfg.limited_iter, n_steps), fir2x,
+                                   pair_conv, None)
+            check(state.step == n_steps, f"resumed run ended at step {state.step}")
+            post = json.loads((exp / "losses.json").read_text())
+            kept = [e for e in pre if e["epoch"] <= start]
+            check(len(kept) == start and post[:start] == kept,
+                  f"losses.json lost its history: before the kill {pre}, after {post}")
+            bares = {"bare": bare, "bare_after": bare_step_ms(cfg, state)}
+            n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
+        finally:
+            os.chdir(cwd)
+    out = {"killed_after_s": killed["s"], "losses_before_kill": len(pre),
+           "resumed_from_epoch": start, "steps": n_steps, "pngs": n_png, "launches": calls,
+           "checkpoint_io": io_.summary(),
+           # a fresh process, as a user's run (a kill in an epoch's saves
+           # takes that epoch's line with it)
+           "subprocess_epochs": loop_vs_bare(epoch_times(killed["log"]), cfg.limited_iter,
+                                             cfg.lazy_reg, {"bare": bare}, cfg.batch_size),
+           "bare_after": bares["bare_after"],
+           "resumed_epochs": loop_vs_bare(epoch_times(tee.text()), cfg.limited_iter,
+                                          cfg.lazy_reg, bares, cfg.batch_size)}
+    print(json.dumps({f"train_loop_{cfg.exp}": out}))
+    return out
+
+
+def loop_through_main_cli(cfg, bare: dict, fir2x, pair_conv, k2_per_step: dict,
+                          sample_launches: dict) -> dict:
+    """`cfg` through `ddgan_torch.cli.main_cli` in this process (launches
+    counted), the checks of `check_loop_run`, and the sampler CLI on the
+    last netG_*.pth."""
+    from ddgan_torch.cli import main_cli
+    from ddgan_torch.train import checkpoint as ckpt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / cfg.dataset / cfg.exp
+        _config_dir(tmp, cfg)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            _reset(fir2x, pair_conv)
+            with Tee() as tee, CheckpointIO(ckpt) as io_:
+                # main_cli writes its own defaults over the config: name each that matters
+                state = main_cli.main(["--dataset", cfg.dataset, "--exp", cfg.exp,
+                                       "--batch_size", str(cfg.batch_size), "--num_epoch",
+                                       str(cfg.num_epoch), "--save_content"])
+            n_steps = (cfg.num_epoch + 1) * cfg.limited_iter
+            calls = check_loop_run(cfg, exp, range(n_steps), fir2x, pair_conv, k2_per_step)
+            check(state.step == n_steps, f"main_cli run ended at step {state.step}")
+            bares = {"bare": bare, "bare_after": bare_step_ms(cfg, state)}
+            n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
+        finally:
+            os.chdir(cwd)
+    out = {"steps": n_steps, "pngs": n_png, "launches": calls, "checkpoint_io": io_.summary(),
+           "bare_after": bares["bare_after"],
+           "epochs": loop_vs_bare(epoch_times(tee.text()), cfg.limited_iter, cfg.lazy_reg, bares,
+                                  cfg.batch_size)}
+    print(json.dumps({f"train_loop_{cfg.exp}": out}))
+    return out
+
+
+def print_loops(loops: dict) -> None:
+    for model, lp in loops.items():
+        for key, row in lp["checkpoint_io"].items():
+            print(f"{model} {key}: {row['bytes']} bytes, {row['mean_s']:.3f} s mean over "
+                  f"{row['count']} ({row['gb_per_s']:.2f} GB/s)")
+        for where in ("subprocess_epochs", "resumed_epochs", "epochs"):
+            for e in lp.get(where, []):
+                after = (f" and {e['bare_after_ms_per_step']:.3f} ms right after the run "
+                         f"({e['loop_over_bare_after']:.3f}x)" if "bare_after_ms_per_step" in e
+                         else "")
+                print(f"{model} loop ({where.split('_')[0]}) epoch {e['epoch']}: "
+                      f"{e['loop_ms_per_step']:.3f} ms per step ({e['samples_per_s']:.2f} "
+                      f"samples/s) beside the bare step's {e['bare_ms_per_step']:.3f} ms in phase "
+                      f"25 ({e['loop_over_bare']:.3f}x){after}; saves {e['saves_s']:.3f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -1014,6 +1392,11 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+    for mod in ("PIL", "lmdb", "torchvision"):  # what the image-file datasets could use
+        res = subprocess.run([sys.executable, "-c", f"import {mod}; print({mod}.__version__)"],
+                             capture_output=True, text=True)
+        print(f"import {mod}: " + (f"yes, {res.stdout.strip()}" if res.returncode == 0
+                                   else f"no ({res.stderr.strip().splitlines()[-1:]})"))
 
     phase("2 build (one nvcc per source, started together)")
 
@@ -1478,7 +1861,26 @@ def main() -> int:
     print(f"{train_profile['kernel_launches_per_step']} kernel launches per 256² step "
           f"(mean of an R1 step and another)")
 
-    phase("27 result")
+    phase("27 the flagship train CLI at full width: killed after three epochs, resumed, sampled")
+    del train256, st, stp, fst, fstep
+    torch.cuda.empty_cache()
+    loops = {"flagship": loop_through_train_cli(
+        cfg.replace(dataset="synthetic", exp="flagship_loop", limited_iter=LOOP_ITERS,
+                    num_epoch=LOOP_EPOCHS, save_ckpt_every=1),
+        train_times["flagship"], fir2x, pair_conv, sample_launches=sampler_launches)}
+
+    phase("28 the CelebA-HQ 256 recipe through main_cli at full width, sampled at 256²")
+    loops["celeba256"] = loop_through_main_cli(
+        cfg2.replace(dataset="synthetic", exp="celeba256_loop", batch_size=TRAIN_BATCH_256,
+                     limited_iter=LOOP_ITERS_256, num_epoch=LOOP_EPOCHS_256, save_ckpt_every=1),
+        train_times["celeba256"], fir2x, pair_conv, k2_per_step={"forward": 46, "dx": 18,
+                                                                 "dx_library": 5},
+        sample_launches=bf16_launches)
+    print_loops(loops)
+    train_paths.update({"flagship_train_cli_resumed": loops["flagship"]["launches"],
+                        "celeba256_main_cli": loops["celeba256"]["launches"]})
+
+    phase("29 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches}
     train_forward = {path: {**{k: v["forward"] for k, v in c["fir"].items()},
                             "pair_conv3x3": c["pair_conv3x3"]["forward"]}
@@ -1541,7 +1943,7 @@ def main() -> int:
                       "samples_per_s": {k: BATCH_256 / v * 1e3 for k, v in results256.items()},
                       "parameters": n_params2, "gpu_vs_cpu_max_abs": err256,
                       "bf16_vs_f32_max_abs": bf16_err, "profile": profile256},
-        "train": {"times": train_times, "launches_by_step": train_paths,
+        "train": {"times": train_times, "launches_by_path": train_paths, "loops": loops,
                   "gpu_vs_cpu_step": {"celeba256": step_cmp256, "flagship": step_cmp32},
                   "bf16_vs_f32_max_abs_dloss": traj_diff, "first_step_attribution": attribution,
                   "trajectories": traj, "parameters":

@@ -3,7 +3,9 @@
 A port of the JAX package `ddgan_tpu`, module for module, with NCHW tensors
 at every API so reference-format `.pth` weights load directly. The reverse
 samplers of the flagship CIFAR-10 and the CelebA-HQ 256 recipes run end to
-end, and so does one-GPU training (`train.make_train_step`). The two
+end, and so does one-GPU training through the train CLIs (`cli.train_cli`,
+`cli.main_cli`: the loop `train.train`, checkpoints in the reference's
+torch format, the datasets of `data/` that need no image decoder). The two
 kernels that the JAX package wrote in Pallas are hand-written CUDA kernels
 here, behind autograd Functions: the 2x FIR resampling (`ops/fir2x.py`,
 `csrc/fir2x.cu`) and the gated 3x3 conv (`ops/pair_conv.py`,

@@ -2,10 +2,13 @@
 
 A copy of `ddgan_tpu/config.py` (the port imports nothing of the JAX
 package). Reference: additionals/create_conf_default.py:17-101 (defaults),
-additionals/utilities.py:123-162 (JSON load/save).
+additionals/utilities.py:123-162 (JSON load/save, with the read-update-write
+semantics the train CLIs rely on).
 
-The perf keys `use_remat`, `remat_policy`, `s2d_conv`, `r1_shared` and
-`optimizer_sharding` are accepted and have no effect on inference.
+The perf keys `use_remat`, `remat_policy` and `s2d_conv` are accepted and
+have no effect; `r1_shared` selects the train step's R1 formulation, and
+`optimizer_sharding` "zero1" is refused by the train loop (ROADMAP.md
+Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -153,3 +156,27 @@ class Config:
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
+
+def default_config() -> Config:
+    return Config()
+
+
+# JSON helpers with the reference's read-update-write semantics
+# (additionals/utilities.py:123-162).
+def load_json_to_dict(path: str | Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def save_dict_to_json(d: dict, path: str | Path) -> None:
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(d, f, indent=4)
+
+
+def modify_json_file(path: str | Path, updates: dict) -> dict:
+    """Read-update-write a JSON config in place (utilities.py:150-162)."""
+    d = load_json_to_dict(path)
+    d.update(updates)
+    save_dict_to_json(d, path)
+    return d

@@ -13,7 +13,8 @@ norm >= max_norm, no epsilon in the denominator), not
 `torch.nn.utils.clip_grad_norm_`.
 The L2 term and the moments are `torch.optim.Adam`'s, whose update is
 optax's `add_decayed_weights` then `scale_by_adam(eps=1e-8)` then -lr. The
-learning rate is set at each step.
+learning rate is set at each step. Its state dict is the inner Adam's, so a
+checkpoint holds the reference's optimizer state (`content.pth`).
 """
 
 from __future__ import annotations
@@ -59,6 +60,13 @@ class ClippedAdam:
             clip_by_global_norm_([p.grad for p in self.params], self.grad_clip_norm)
         self.adam.param_groups[0]["lr"] = float(lr)
         self.adam.step()
+
+    def state_dict(self) -> dict:
+        """The inner `torch.optim.Adam`'s state dict (the reference's format)."""
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.adam.load_state_dict(state_dict)
 
 
 def cosine_lr(base_lr: float, epoch: int, num_epoch: int, eta_min: float = 1e-5) -> float:

@@ -1,7 +1,8 @@
-"""Package rules of the port (`ddgan_torch`): it never imports JAX or the
-JAX package, its entry points run on the GPU unless the CPU is asked for,
-its config schema is the JAX package's, and `chip_smoke.py` fails rather
-than reporting a result when it has no GPU or no checkout around it.
+"""Package rules of the port (`ddgan_torch`): it never imports JAX, the
+JAX package or PIL, its entry points (the train CLIs among them) run on the
+GPU unless the CPU is asked for, its config schema is the JAX package's,
+and `chip_smoke.py` fails rather than reporting a result when it has no GPU
+or no checkout around it.
 """
 
 import ast
@@ -18,12 +19,12 @@ import torch
 from ddgan_tpu.config import Config as JConfig
 
 from ddgan_torch import _device
-from ddgan_torch.cli import test_cli
+from ddgan_torch.cli import main_cli, test_cli, train_cli
 from ddgan_torch.config import Config
 from ddgan_torch.diffusion import schedules
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu", "PIL")
 
 
 def _port_sources():
@@ -82,11 +83,27 @@ def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for(no_gpu, monkeypatch
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         test_cli.main(["--dataset", "cifar10", "--exp", "none"])
+    # the train CLIs raise before they write the config or train
+    for main, argv in ((train_cli.main, ["--use_config_file", "True", "--dataset", "synthetic"]),
+                       (main_cli.main, ["--dataset", "synthetic"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(argv)
+        assert not (tmp_path / "configs").exists() and not (tmp_path / "saved_info").exists()
+    from ddgan_torch.train import loop
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.train(Config(dataset="synthetic"))
 
     assert _device.resolve_device("cpu") == torch.device("cpu")
     assert schedules.get_time_schedule(4, device="cpu").device.type == "cpu"
     monkeypatch.setenv(_device.ENV_VAR, "cpu")
     assert _device.resolve_device() == torch.device("cpu")
+    devices = []
+    monkeypatch.setattr(loop, "train", lambda cfg, device=None: devices.append(device))
+    monkeypatch.setattr("ddgan_torch.train.train", loop.train)
+    train_cli.main(["--dataset", "synthetic"])
+    main_cli.main(["--dataset", "synthetic"])
+    assert devices == [torch.device("cpu")] * 2
     assert schedules.PosteriorCoefficients.create(4, 0.1, 20.0).betas.device.type == "cpu"
     with pytest.raises(RuntimeError, match="unsupported"):
         _device.resolve_device("meta")

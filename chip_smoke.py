@@ -5,8 +5,9 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It drives the port's two sampler paths, its two
-train steps and its train loop through both train CLIs, with seeded
-weights, and fails (non-zero exit) if any phase fails. Each phase prints
+train steps, its train loop through both train CLIs and its evaluation
+(FID through the sampler CLI, the Inception Score), with seeded weights,
+and fails (non-zero exit) if any phase fails. Each phase prints
 its wall time.
 
 The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
@@ -125,7 +126,34 @@ temporary working directory whose ./configs/config.json it writes:
      phase 25's bare step and the bare step timed on the run's own state
      right after it, for the same mix of R1 steps, samples/s, and the bytes
      and seconds of each checkpoint write and of the resume's read;
- 29. print the result, a `{"kernels": [...]}` line (the forward entries and
+
+Evaluation (`ddgan_torch.eval`), with seeded random Inception weights (no
+real ones are in the repository):
+
+ 29. FID-InceptionV3 with `random_fid_inception_logits_params(0)`: 16
+     seeded images at 32² (grown to 299) and at 512² (shrunk), all four
+     blocks and the logits on the GPU (f32, TF32 off) against the CPU
+     (max-abs <= 1e-4 of max|ref|); one batch of 50 at 299² timed beside
+     its bound (the multiply-adds of one forward, counted from the layer
+     shapes, at 67 TFLOP/s f32);
+ 30. the main path: `test_cli --compute_fid` on the full-width flagship at
+     batch 64 (phase 7's weights in a netG_1.pth), 4,096 samples against
+     4,096 seeded 32² PNGs that the phase writes with a row filter chosen
+     as PIL chooses it (the files a user's real directory holds): 24
+     down2x and 24 up2x launches per sampler call and no pair_conv3x3, a
+     finite FID > 0 that fid_output_path holds, the same FID from .npz
+     statistics of both directories (`save_statistics`) within 1e-6
+     relative, and the real directory against its own statistics within
+     1e-3 of trace(sigma); the seconds of sampling (the device span of the
+     calls), PNG encoding, PNG decoding, Inception and the Fréchet distance
+     (sqrtm) apart, and samples/s of the whole CLI call; then the FID
+     loader on the filtered real set and on 250 filtered 256² PNGs, every
+     image exact, ms per image;
+ 31. the Inception Score: the CelebA-HQ 256 bf16 sampler at batch 16 writes
+     256 samples as one .npy stack (46 pair_conv3x3, 20 down2x and 20 up2x
+     launches per call), which `ddgan_torch.eval.inception_score.main`
+     scores (splits 1, random logits): finite and >= 1, timed;
+ 32. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path), and
      the `{"ok": true, ...}` line last.
 
@@ -135,6 +163,7 @@ without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -144,7 +173,9 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -1358,6 +1389,374 @@ def print_loops(loops: dict) -> None:
                       f"25 ({e['loop_over_bare']:.3f}x){after}; saves {e['saves_s']:.3f} s")
 
 
+# ---------------------------------------------------------------------------
+# evaluation: FID-InceptionV3, the sampler CLI's --compute_fid, the IS CLI
+FID_SAMPLES = 4096  # above 2048, so both 2048-dim covariances are full rank
+IS_SAMPLES = 256
+DECODE_256_IMAGES = 250  # filtered 256² PNGs timed through the FID loader
+INCEPTION_BATCH = 50  # the FID path's batch (test_cli passes 50)
+
+
+def inception_macs(inc) -> int:
+    """Multiply-adds of one 299² image through the FID Inception and its
+    classifier head, counted from the layer shapes (a forward on the meta
+    device: every conv's output elements x its input channels x kernel
+    taps, and the fc's)."""
+    model = inc.InceptionV3FID(num_classes=inc.NUM_CLASSES, resize_input=False).to("meta")
+    total = [0]
+
+    def hook(mod, _, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            total[0] += out.numel() * mod.in_channels * math.prod(mod.kernel_size) // mod.groups
+        elif isinstance(mod, torch.nn.Linear):
+            total[0] += out.numel() * mod.in_features
+
+    for mod in model.modules():
+        mod.register_forward_hook(hook)
+    model.logits(torch.zeros((1, 3, 299, 299), device="meta"))
+    return total[0]
+
+
+def check_inception(inc, dev) -> dict:
+    """The full network with `random_fid_inception_logits_params(0)` on the
+    GPU (f32, TF32 off) against the port's CPU path, all four blocks and the
+    logits, on 16 seeded images at 32² (grown to 299) and 512² (shrunk);
+    then one batch of 50 at 299² timed against the bound of its operations."""
+    model = inc.InceptionV3FID(output_blocks=(0, 1, 2, 3), num_classes=inc.NUM_CLASSES)
+    model.load_state_dict(inc.random_fid_inception_logits_params(0), strict=True)
+    model_gpu = copy.deepcopy(model).to(dev)
+    errs = {}
+    for side in (32, 512):
+        x = torch.from_numpy(np.random.RandomState(side).rand(16, 3, side, side).astype(np.float32))
+        with torch.no_grad():
+            want = model(x)
+            want.append(model.fc(want[3][:, :, 0, 0]))
+            with inc.float32_exact():
+                got = model_gpu(x.to(dev))
+                got.append(model_gpu.fc(got[3][:, :, 0, 0]))
+        errs[side] = [((g.cpu() - w).abs().max() / w.abs().max()).item()
+                      for g, w in zip(got, want)]
+        print(f"Inception at {side}² (batch 16), GPU vs CPU, max-abs over max|ref| of blocks "
+              f"0-3 and the logits: {[f'{e:.3g}' for e in errs[side]]}")
+        check(all(e <= 1e-4 for e in errs[side]), f"Inception at {side}²: {errs[side]}")
+        check(all(bool(torch.isfinite(g).all()) for g in got), "Inception output not finite")
+    feats = inc.InceptionV3FID().to(dev)
+    feats.load_state_dict({k: v for k, v in model.state_dict().items()
+                           if k in feats.state_dict()}, strict=True)
+    g = torch.Generator(device=dev).manual_seed(29)
+    bufs = [torch.rand((INCEPTION_BATCH, 3, 299, 299), generator=g, device=dev) for _ in range(2)]
+    with torch.no_grad(), inc.float32_exact():
+        ms = device_ms(feats.pool_features, bufs, iters=10)
+    macs = inception_macs(inc)
+    bound = 2 * macs * INCEPTION_BATCH / FP32_FLOPS * 1e3
+    out = {"max_rel_err": {str(k): v for k, v in errs.items()}, "batch": INCEPTION_BATCH,
+           "ms": ms, "images_per_s": INCEPTION_BATCH / ms * 1e3, "macs_per_image": macs,
+           "bound_ms": bound, "bound_by": "operations", "share_of_bound": bound / ms,
+           "tflops": 2 * macs * INCEPTION_BATCH / ms / 1e9}
+    print(f"Inception pool3, batch {INCEPTION_BATCH} at 299², f32 (TF32 off): {ms:.3f} ms = "
+          f"{out['images_per_s']:.1f} images/s, {out['tflops']:.2f} TFLOP/s; {macs} "
+          f"multiply-adds an image; bound {bound:.3f} ms (operations at 67 TFLOP/s f32), "
+          f"{out['share_of_bound']:.1%} of it")
+    return out
+
+
+class Stopwatch:
+    """While active, sums the seconds (and counts the calls) of the module
+    functions it wraps, from any thread; `wrap_result` also wraps the
+    function that a call returns (a feature function a factory builds)."""
+
+    def __init__(self):
+        self.s, self.n, self._lock, self._saved = {}, {}, threading.Lock(), []
+
+    def _timed(self, label: str, fn, sync: bool = False):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                with self._lock:
+                    self.s[label] = self.s.get(label, 0.0) + time.perf_counter() - t0
+                    self.n[label] = self.n.get(label, 0) + 1
+        return timed
+
+    def wrap(self, mod, name: str, label: str, wrap_result: str | None = None) -> None:
+        fn = getattr(mod, name)
+        self._saved.append((mod, name, fn))
+        if wrap_result:
+            inner = fn
+
+            def fn(*a, **kw):
+                return self._timed(wrap_result, inner(*a, **kw), sync=True)
+        setattr(mod, name, self._timed(label, fn))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+
+
+class SamplerSpans:
+    """While active, the sampler the CLI builds records CUDA events around
+    each call (no sync): the device span of every call, summed after."""
+
+    def __init__(self, test_cli):
+        self.cli, self.events = test_cli, []
+
+    def __enter__(self):
+        self.make = make = self.cli.make_sampler
+        events = self.events
+
+        def make_sampler(*a, **kw):
+            sample = make(*a, **kw)
+
+            def spanned():
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                out = sample()
+                end.record()
+                events.append((start, end))
+                return out
+            return spanned
+
+        self.cli.make_sampler = make_sampler
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.make_sampler = self.make
+
+    def seconds(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
+
+
+@contextlib.contextmanager
+def random_inception_env():
+    """DDGAN_TPU_INCEPTION_RANDOM=0 and no weights path while the block runs."""
+    saved = {k: os.environ.pop(k, None)
+             for k in ("DDGAN_TPU_INCEPTION_RANDOM", "DDGAN_TPU_INCEPTION_PATH")}
+    os.environ["DDGAN_TPU_INCEPTION_RANDOM"] = "0"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def smooth_image(rs, side: int) -> np.ndarray:
+    """(side, side, 3) uint8 with an image's local correlation (a cumulative
+    sum of small steps), so the adaptive filter picks Sub and Paeth rows as
+    it does on photographs, where noise would give it no preference."""
+    x = np.cumsum(np.cumsum(rs.randint(-3, 4, (side, side, 3)), 0), 1)
+    return ((x + rs.randint(0, 256, (1, 1, 3))) % 256).astype(np.uint8)
+
+
+def encode_png_adaptive(arr: np.ndarray) -> tuple[bytes, np.ndarray]:
+    """An 8-bit RGB PNG of (H, W, 3) uint8 pixels whose every row takes the
+    filter (0-4) with the least sum of absolute residuals as signed bytes,
+    the heuristic of libpng and PIL's adaptive filtering; and the row
+    filters chosen. The files PIL writes reach a decoder this way; the
+    port's own PNGs are unfiltered."""
+    h, w, _ = arr.shape
+    cur = arr.reshape(h, w * 3).astype(np.int16)
+    up = np.concatenate([np.zeros((1, w * 3), np.int16), cur[:-1]])
+    left = np.concatenate([np.zeros((h, 3), np.int16), cur[:, :-3]], axis=1)
+    upleft = np.concatenate([np.zeros((h, 3), np.int16), up[:, :-3]], axis=1)
+    pa, pb, pc = np.abs(up - upleft), np.abs(left - upleft), np.abs(left + up - 2 * upleft)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+    preds = np.stack([np.zeros_like(cur), left, up, (left + up) >> 1, paeth])
+    residual = ((cur - preds) % 256).astype(np.uint8)  # (5, H, W * 3)
+    filters = np.abs(residual.view(np.int8).astype(np.int32)).sum(axis=2).argmin(axis=0)
+    rows = residual[filters, np.arange(h)]
+    raw = np.concatenate([filters[:, None].astype(np.uint8), rows], axis=1).tobytes()
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return (len(body).to_bytes(4, "big") + tag + body
+                + (zlib.crc32(tag + body) & 0xFFFFFFFF).to_bytes(4, "big"))
+
+    ihdr = w.to_bytes(4, "big") + h.to_bytes(4, "big") + bytes([8, 2, 0, 0, 0])
+    png = (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw, 6))
+           + chunk(b"IEND", b""))
+    return png, filters
+
+
+def write_filtered_set(directory: Path, n: int, side: int, seed: int) -> dict:
+    """n smooth side² images as adaptively filtered PNGs; their pixels, the
+    rows' filter counts and the seconds it took."""
+    directory.mkdir()
+    rs = np.random.RandomState(seed)
+    t0 = time.perf_counter()
+    pixels, hist = [], np.zeros(5, np.int64)
+    for i in range(n):
+        pixels.append(smooth_image(rs, side))
+        png, filters = encode_png_adaptive(pixels[-1])
+        hist += np.bincount(filters, minlength=5)
+        (directory / f"{i}.png").write_bytes(png)
+    return {"pixels": pixels, "filters": hist.tolist(), "write_s": time.perf_counter() - t0}
+
+
+def decode_check(fid_mod, directory: Path, written: dict, batch: int = 50) -> dict:
+    """A filtered set as the FID loader reads it, in FID batches of 50: the
+    files' bytes, then `decode_pngs`, timed apart; every image must come
+    back exactly as written. ms per image on this host."""
+    from ddgan_torch.utils import decode_pngs
+
+    files = fid_mod.list_image_files(directory)
+    files.sort(key=lambda f: int(f.stem))
+    read_s, decode_s, bad = 0.0, 0.0, 0
+    for k in range(0, len(files), batch):
+        t0 = time.perf_counter()
+        datas = [f.read_bytes() for f in files[k:k + batch]]
+        t1 = time.perf_counter()
+        images = decode_pngs(datas)
+        decode_s += time.perf_counter() - t1
+        read_s += t1 - t0
+        bad += sum(not np.array_equal(img, px)
+                   for img, px in zip(images, written["pixels"][k:k + batch]))
+    check(bad == 0 and len(files) == len(written["pixels"]),
+          f"{bad} of {len(files)} filtered PNGs decoded wrong")
+    return {"files": len(files), "read_s": read_s, "decode_s": decode_s,
+            "decode_ms_per_image": 1e3 * decode_s / len(files),
+            "row_filters_0_to_4": written["filters"]}
+
+
+def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
+    """`python -m ddgan_torch.cli.test_cli --compute_fid` in this process, on
+    a temp experiment (content_args.json, netG_1.pth) of the full-width
+    flagship at batch 64, 4,096 samples against 4,096 seeded 32² PNGs
+    filtered as PIL filters them, random Inception weights; the FID's
+    checks and its time split; then the FID loader's decoding of filtered
+    PNGs at 32² and 256²."""
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.eval import fid as fid_mod
+    from ddgan_torch.eval import inception as inc
+    with tempfile.TemporaryDirectory() as tmp, random_inception_env():
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / "cifar10" / "fid"
+        exp.mkdir(parents=True)
+        (exp / "content_args.json").write_text(json.dumps(cfg.replace(exp="fid").to_dict()))
+        torch.save(gen_sd, exp / "netG_1.pth")
+        real = tmp / "real"
+        real_set = write_filtered_set(real, FID_SAMPLES, 32, seed=30)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            with Stopwatch() as sw, SamplerSpans(test_cli) as spans:
+                sw.wrap(test_cli, "generate_samples", "generate_wall")
+                sw.wrap(test_cli, "save_image", "png_encode")
+                sw.wrap(fid_mod, "decode_pngs", "png_decode")
+                sw.wrap(inc, "default_feature_fn", "inception_build", wrap_result="inception")
+                sw.wrap(fid_mod, "calculate_frechet_distance", "frechet_sqrtm")
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fid = test_cli.main(["--dataset", "cifar10", "--exp", "fid", "--epoch_id", "1",
+                                     "--seed", "0", "--compute_fid", "--num_fid_samples",
+                                     str(FID_SAMPLES), "--real_img_dir", str(real),
+                                     "--fid_output_path", str(tmp / "fid.txt")])
+                cli_s = time.perf_counter() - t0
+                launches = counts()
+                sampling_s = spans.seconds()
+            calls = len(spans.events)
+            fake = tmp / "generated_samples" / "cifar10"
+            n_png = len(list(fake.glob("*.png")))
+            check(n_png == FID_SAMPLES, f"--compute_fid wrote {n_png} PNGs")
+            check(calls == FID_SAMPLES // BATCH, f"{calls} sampler calls")
+            check(launches == {"down2x": 24 * calls, "up2x": 24 * calls, "pair_conv3x3": 0},
+                  f"--compute_fid launches {launches} over {calls} sampler calls")
+            check(math.isfinite(fid) and fid > 0, f"FID {fid}")
+            written = float((tmp / "fid.txt").read_text())
+            check(written == fid, f"fid_output_path holds {written}, the CLI returned {fid}")
+
+            # the same FID from .npz statistics of both directories
+            feature_fn = inc.default_feature_fn(2048, device=dev)
+            stats = {}
+            for name, d in (("fake", fake), ("real", real)):
+                stats[name] = fid_mod.compute_statistics_of_path(str(d), feature_fn, 50, 2048)
+                fid_mod.save_statistics(str(tmp / f"{name}.npz"), *stats[name])
+            from_npz = fid_mod.calculate_fid_given_paths(
+                [str(tmp / "fake.npz"), str(tmp / "real.npz")], feature_fn=feature_fn)
+            npz_rel = abs(from_npz - fid) / fid
+            check(npz_rel <= 1e-6, f"FID from .npz {from_npz} vs the CLI's {fid}")
+            # the real directory against its own statistics
+            self_fid = fid_mod.calculate_fid_given_paths(
+                [str(real), str(tmp / "real.npz")], batch_size=50, feature_fn=feature_fn)
+            trace = float(np.trace(stats["real"][1]))
+            check(abs(self_fid) <= 1e-3 * trace, f"self-FID {self_fid}, trace(sigma) {trace}")
+            # the FID loader on PIL-style filtered PNGs: the real set, and a
+            # CelebA-HQ-sized one
+            decode = {"32": decode_check(fid_mod, real, real_set)}
+            decode["256"] = decode_check(fid_mod, tmp / "real256", write_filtered_set(
+                tmp / "real256", DECODE_256_IMAGES, 256, seed=31))
+        finally:
+            os.chdir(cwd)
+    out = {"fid": fid, "fid_from_npz": from_npz, "npz_rel_diff": npz_rel,
+           "self_fid": self_fid, "trace_sigma_real": trace, "samples": FID_SAMPLES,
+           "batch": BATCH, "sampler_calls": calls, "launches": launches,
+           "cli_s": cli_s, "samples_per_s": FID_SAMPLES / cli_s,
+           "sampling_device_span_s": sampling_s, "real_png_write_s": real_set["write_s"],
+           "filtered_decode": decode,
+           "seconds": sw.s, "calls": sw.n}
+    print(f"--compute_fid: FID {fid!r} (from .npz {from_npz!r}, rel {npz_rel:.3g}); "
+          f"self-FID {self_fid:.4g} against trace(sigma) {trace:.4g}; launches {launches} "
+          f"over {calls} sampler calls")
+    print(f"--compute_fid split (s): whole CLI {cli_s:.3f} = {out['samples_per_s']:.2f} samples/s;"
+          f" sampling, device span of the calls {sampling_s:.3f}; generate loop wall "
+          f"{sw.s['generate_wall']:.3f}; PNG encoding {sw.s['png_encode']:.3f} (in 2 threads, "
+          f"{sw.n['png_encode']} files); PNG decoding {sw.s['png_decode']:.3f} "
+          f"({2 * FID_SAMPLES} files in {sw.n['png_decode']} batches; the real set filtered as "
+          f"PIL filters, rows by filter 0-4 {real_set['filters']}); Inception "
+          f"{sw.s['inception']:.3f} "
+          f"({sw.n['inception']} batches, with the copies); Fréchet distance (sqrtm) "
+          f"{sw.s['frechet_sqrtm']:.3f} ({sw.n['frechet_sqrtm']} calls)")
+    for side, d in decode.items():
+        print(f"filtered PNG decoding at {side}², FID batches of 50: {d['files']} files, "
+              f"decode_pngs {d['decode_s']:.3f} s = {d['decode_ms_per_image']:.3f} ms an image "
+              f"(reading the files {d['read_s']:.3f} s apart; rows by filter 0-4 "
+              f"{d['row_filters_0_to_4']}), every image exact")
+    return out
+
+
+def is_run(cfg2, net2_16, dev, reset_counts, counts) -> dict:
+    """The full-width CelebA-HQ 256 bf16 sampler at batch 16 writes 256
+    samples as one [0, 1] NCHW .npy stack, which `python -m
+    ddgan_torch.eval.inception_score` scores (splits 1, random logits)."""
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.eval import inception_score
+    from ddgan_torch.utils import to_range_0_1
+
+    sample = test_cli.make_sampler(cfg2, net2_16, BATCH_256, dev,
+                                   torch.Generator(device=dev).manual_seed(31))
+    calls = IS_SAMPLES // BATCH_256
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stack = [to_range_0_1(sample()).float().cpu() for _ in range(calls)]
+    sampling_s = time.perf_counter() - t0
+    launches = counts()
+    check(launches == {"down2x": 20 * calls, "up2x": 20 * calls, "pair_conv3x3": 46 * calls},
+          f"IS run launches {launches} over {calls} sampler calls")
+    with tempfile.TemporaryDirectory() as tmp, random_inception_env():
+        path = Path(tmp) / "samples.npy"
+        np.save(path, torch.cat(stack).numpy())
+        t0 = time.perf_counter()
+        score, std = inception_score.main(["--sample_dir", str(path), "--splits", "1"])
+        is_s = time.perf_counter() - t0
+    check(math.isfinite(score) and score >= 1, f"Inception Score {score}")
+    out = {"inception_score": score, "std": std, "samples": IS_SAMPLES, "batch": BATCH_256,
+           "sampler_calls": calls, "launches": launches, "sampling_s": sampling_s,
+           "inception_score_cli_s": is_s}
+    print(f"IS {score!r} (std {std}) over {IS_SAMPLES} 256² samples; sampling {sampling_s:.3f} s "
+          f"({calls} calls, launches {launches}); IS CLI {is_s:.3f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -1521,6 +1920,7 @@ def main() -> int:
     phase("9 where the flagship sampler's time goes (torch.profiler, bf16)")
     profile = profile_sampler(test_cli.make_sampler(
         cfg, net16, BATCH, dev, torch.Generator(device=dev).manual_seed(4)), results["bf16"])
+    flag_sd = net_cpu.state_dict()  # phase 30 samples an FID set from these weights
     del net16, net32, net_cpu, got, want, out
 
     phase("10 pair_conv3x3 against its plain version")
@@ -1880,8 +2280,22 @@ def main() -> int:
     train_paths.update({"flagship_train_cli_resumed": loops["flagship"]["launches"],
                         "celeba256_main_cli": loops["celeba256"]["launches"]})
 
-    phase("29 result")
-    main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches}
+    phase("29 FID-InceptionV3 on the card: GPU (f32, TF32 off) against the CPU; its time")
+    from ddgan_torch.eval import inception as inc
+
+    evals = {"inception": check_inception(inc, dev)}
+
+    phase("30 main path: the sampler CLI with --compute_fid, full-width flagship, "
+          f"{FID_SAMPLES} samples")
+    evals["compute_fid"] = fid_cli_run(cfg, flag_sd, dev, reset_counts, counts)
+
+    phase(f"31 Inception Score of {IS_SAMPLES} CelebA-HQ 256 samples (bf16 sampler, IS CLI)")
+    evals["inception_score"] = is_run(cfg2, net2_16, dev, reset_counts, counts)
+
+    phase("32 result")
+    main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
+                  "flagship_compute_fid": evals["compute_fid"]["launches"],
+                  "celeba256_inception_score": evals["inception_score"]["launches"]}
     train_forward = {path: {**{k: v["forward"] for k, v in c["fir"].items()},
                             "pair_conv3x3": c["pair_conv3x3"]["forward"]}
                      for path, c in train_paths.items()}
@@ -1949,6 +2363,7 @@ def main() -> int:
                   "trajectories": traj, "parameters":
                   {"celeba256_G": n_g_params, "celeba256_D": n_d_params},
                   "roles": role_times, "profile": train_profile},
+        "eval": evals,
         "build_s": build_s,
         "phase_s": PHASE_S,
     }))

@@ -5,7 +5,10 @@ at every API so reference-format `.pth` weights load directly. The reverse
 samplers of the flagship CIFAR-10 and the CelebA-HQ 256 recipes run end to
 end, and so does one-GPU training through the train CLIs (`cli.train_cli`,
 `cli.main_cli`: the loop `train.train`, checkpoints in the reference's
-torch format, the datasets of `data/` that need no image decoder). The two
+torch format, the datasets of `data/` that need no image decoder), and so does
+evaluation (`eval/`: FID-InceptionV3, FID and the Inception Score, and
+`--compute_fid` in the sampler CLI, which also reads the JAX package's
+`netG_*.ckpt` through `compat/msgpack.py`). The two
 kernels that the JAX package wrote in Pallas are hand-written CUDA kernels
 here, behind autograd Functions: the 2x FIR resampling (`ops/fir2x.py`,
 `csrc/fir2x.cu`) and the gated 3x3 conv (`ops/pair_conv.py`,

@@ -12,18 +12,21 @@ from the directory that holds `saved_info/`; `--device cpu` (or
     (the JAX package's plain JSON) or a reference content.pth, overridden
     by the command line;
   * load netG_{epoch_id}.pth (reference format, `module.` prefixes
-    stripped) into the generator;
+    stripped) or, when there is none, the JAX package's netG_{epoch_id}.ckpt
+    (flax msgpack, read without JAX) into the generator;
   * run the T-step reverse sampler with a fresh z per step and write PNGs
-    (or one NPY) to {generated_samples_dir}/generated_samples/{dataset}.
-
-`generate_samples` is the pipelined batch loop that makes an FID set.
-`--compute_fid` needs the Inception port and is refused up front.
+    (or one NPY) to {generated_samples_dir}/generated_samples/{dataset};
+  * with --compute_fid, write num_fid_samples PNGs there with the pipelined
+    batch loop `generate_samples`, then the FID against real_img_dir
+    (FID-InceptionV3 pool3, 2048 dims, on the CLI's device) to
+    fid_output_path.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..compat import load_netg_pth
+from ..compat import load_netg_ckpt, load_netg_pth
 from ..config import Config
 from ..diffusion import PosteriorCoefficients, sample_from_model
 from ..models import NCSNpp
@@ -75,19 +78,23 @@ def load_config(exp_path: Path, args: argparse.Namespace) -> Config:
 
 
 def load_generator(exp_path: Path, cfg: Config, epoch_id: int, device: torch.device) -> NCSNpp:
-    """NCSNpp with the weights of netG_{epoch_id}.pth, in eval mode on `device`."""
+    """NCSNpp with the weights of netG_{epoch_id}, in eval mode on `device`.
+
+    The port's (and the reference's) netG_{epoch_id}.pth is taken first,
+    then the JAX package's netG_{epoch_id}.ckpt: the reverse of the JAX
+    CLI's order (`ddgan_tpu/cli/test_cli.py:77-92`), each package preferring
+    its own format.
+    """
     pth = exp_path / f"netG_{epoch_id}.pth"
-    if not pth.exists():
-        if (exp_path / f"netG_{epoch_id}.ckpt").exists():
-            raise FileNotFoundError(
-                f"{exp_path / f'netG_{epoch_id}.ckpt'} is a JAX (flax msgpack) checkpoint; "
-                "the port reads reference-format .pth only until the checkpoint converter "
-                "lands (ROADMAP.md Queue 1 item 8). Export it with "
-                "ddgan_tpu.compat.save_torch_netg to netG_{epoch_id}.pth."
-            )
+    ckpt = exp_path / f"netG_{epoch_id}.ckpt"
+    if pth.exists():
+        state_dict = load_netg_pth(str(pth))
+    elif ckpt.exists():
+        state_dict = load_netg_ckpt(str(ckpt))
+    else:
         raise FileNotFoundError(f"Checkpoint netG_{epoch_id} not found in {exp_path}")
     net = NCSNpp.from_config(cfg)
-    net.load_state_dict(load_netg_pth(str(pth)), strict=True)
+    net.load_state_dict(state_dict, strict=True)
     return net.to(device).eval()
 
 
@@ -181,13 +188,9 @@ def generate_samples(
 
 
 def sample_and_test(args: argparse.Namespace):
-    if args.compute_fid:
-        raise NotImplementedError(
-            "--compute_fid needs the Inception network, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 6, evaluation). Generate without it, or score "
-            "with the JAX package's test_ddgan.py."
-        )
     device = resolve_device(args.device)
+    if args.compute_fid and not os.path.exists(args.real_img_dir):
+        raise FileNotFoundError(f"Real image directory {args.real_img_dir} not found.")
     exp_path = Path(f"./saved_info/dd_gan/{args.dataset}/{args.exp}")
     cfg = load_config(exp_path, args)
     net = load_generator(exp_path, cfg, int(args.epoch_id), device)
@@ -197,6 +200,25 @@ def sample_and_test(args: argparse.Namespace):
 
     save_dir = Path(args.generated_samples_dir) / "generated_samples" / str(args.dataset)
     save_dir.mkdir(parents=True, exist_ok=True)
+    if args.compute_fid:
+        from ..eval.fid import calculate_fid_given_paths
+        from ..eval.inception import default_feature_fn
+
+        generate_samples(sample, int(args.num_fid_samples), batch_size, save_dir,
+                         save_npy=bool(args.save_npy), normalize=bool(args.normalize),
+                         tag=str(args.exp))
+        fid = calculate_fid_given_paths(
+            [str(save_dir), args.real_img_dir], batch_size=50, dims=2048,
+            feature_fn=default_feature_fn(dims=2048, device=device))
+        print(f"FID = {fid}")
+        if args.fid_output_path:
+            out_dir = os.path.dirname(args.fid_output_path)
+            if out_dir:
+                os.makedirs(out_dir, exist_ok=True)
+            with open(args.fid_output_path, "w") as f:
+                f.write(f"{fid}\n")
+            print(f"FID score saved to {args.fid_output_path}")
+        return fid
     fake = to_range_0_1(sample()).permute(0, 2, 3, 1).float().cpu().numpy()
     if args.save_npy:
         np.save("file.npy", fake.transpose(0, 3, 1, 2))

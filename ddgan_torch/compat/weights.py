@@ -1,5 +1,5 @@
-"""Weights into the port: the JAX package's parameter tree, or a reference
-`netG_*.pth`.
+"""Weights into the port: the JAX package's parameter tree, its
+`netG_*.ckpt` files, or a reference `netG_*.pth`.
 
 The port's module names are the reference torch keys (`all_modules.{i}.…`,
 `z_transform.{2j+1}.…`, no `conv` / `linear` wrapper level), so
@@ -16,6 +16,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from .msgpack import read_msgpack
 
 _WRAPPERS = ("conv", "linear", "dense")
 
@@ -93,3 +95,12 @@ def load_netg_pth(path: str) -> dict[str, torch.Tensor]:
     'module.' prefixes stripped. (test_ddgan.py:156-162)"""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return strip_module_prefix(sd)
+
+
+def load_netg_ckpt(path: str) -> dict[str, torch.Tensor]:
+    """A JAX package `netG_{epoch}.ckpt` (flax msgpack of {"params", and
+    "buffers" when the generator has any}; `ddgan_tpu/train/checkpoint.py:
+    save_netg`) as the port's state_dict on the CPU."""
+    with open(path, "rb") as f:
+        payload = read_msgpack(f.read())
+    return state_dict_from_flax(payload["params"], payload.get("buffers"))

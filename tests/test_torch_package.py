@@ -1,5 +1,6 @@
 """Package rules of the port (`ddgan_torch`): it never imports JAX, the
-JAX package or PIL, its entry points (the train CLIs among them) run on the
+JAX package, PIL or msgpack (its flax reader is its own), scipy only for the
+FID's matrix square root, its entry points (the train CLIs among them) run on the
 GPU unless the CPU is asked for, its config schema is the JAX package's,
 and `chip_smoke.py` fails rather than reporting a result when it has no GPU
 or no checkout around it.
@@ -24,7 +25,7 @@ from ddgan_torch.config import Config
 from ddgan_torch.diffusion import schedules
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu", "PIL", "msgpack")
 
 
 def _port_sources():
@@ -50,6 +51,12 @@ def test_sources_import_no_jax():
     bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
+
+
+def test_scipy_only_in_the_fid():
+    users = sorted(str(p.relative_to(ROOT)) for p in _port_sources()
+                   if "scipy" in _imported_roots(p))
+    assert users == ["ddgan_torch/eval/fid.py"]
 
 
 def test_importing_every_module_leaves_jax_out():
@@ -144,6 +151,37 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_chip_smoke_writes_its_real_set_filtered_as_pil_does(tmp_path):
+    """Phase 30's real directory: PNGs whose rows take the filter PIL's
+    adaptive heuristic picks (Sub and Paeth on smooth images), which both
+    the port and PIL decode to the pixels written; the loader check passes
+    on them and fails on a wrong pixel."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from ddgan_torch.eval import fid
+    from ddgan_torch.utils import decode_png
+
+    cs = _chip_smoke()
+    rs = np.random.RandomState(0)
+    for side in (1, 5, 32):
+        pixels = cs.smooth_image(rs, side)
+        png, filters = cs.encode_png_adaptive(pixels)
+        assert filters.shape == (side,) and filters.max() <= 4
+        np.testing.assert_array_equal(decode_png(png), pixels)
+        np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(png)).convert("RGB")),
+                                      pixels)
+    written = cs.write_filtered_set(tmp_path / "real", 60, 16, seed=1)
+    assert written["filters"][1] > 0 and written["filters"][4] > 0
+    got = cs.decode_check(fid, tmp_path / "real", written)
+    assert got["files"] == 60 and got["row_filters_0_to_4"] == written["filters"]
+    written["pixels"][59] = written["pixels"][59] ^ 1
+    with pytest.raises(AssertionError, match="1 of 60"):
+        cs.decode_check(fid, tmp_path / "real", written)
 
 
 _PTXAS_REPORT = """\

@@ -5,7 +5,8 @@ recipe cut to image 64 and nf 16 (T=2), and the sampler CLI on the CPU.
 
 The sampler is compared with the JAX package's generator and
 `sample_posterior_with_noise` looped over the same x_init, z's and noises
-(atol 1e-4 over T generator calls, f32).
+(atol 1e-4 over T generator calls, f32). The CLI also samples from the
+JAX package's own `netG_*.ckpt` and scores an FID set with --compute_fid.
 """
 
 import json
@@ -19,7 +20,9 @@ from PIL import Image
 
 from ddgan_tpu.compat import save_torch_netg
 from ddgan_tpu.diffusion import schedules as jsched
+from ddgan_tpu.eval import fid as jfid
 from ddgan_tpu.models import NCSNpp as JNCSNpp
+from ddgan_tpu.train.checkpoint import save_netg
 
 from ddgan_torch.cli import test_cli
 from ddgan_torch.diffusion import schedules
@@ -199,16 +202,52 @@ def test_cli_writes_pngs_on_cpu(tmp_path, monkeypatch, tiny):
     assert img.shape == (16, 16, 3) and img.std() > 5  # not a blank image
 
 
-def test_cli_refusals(tmp_path, monkeypatch, tiny):
-    exp = _experiment(tmp_path, tiny)
+def test_cli_refusals(tmp_path, monkeypatch, capsys, tiny):
+    """What the CLI once refused it now does: it samples from the JAX
+    package's netG_*.ckpt (generator output equal to the JAX generator's on
+    the same weights) and scores an FID set with --compute_fid, equal to the
+    JAX package's FID of the same two directories. A missing netG is still
+    refused."""
+    cfg, net, gen, params = tiny
+    exp = tmp_path / "saved_info" / "dd_gan" / "cifar10" / "tiny"
+    exp.mkdir(parents=True)
+    (exp / "content_args.json").write_text(
+        json.dumps(cfg.replace(batch_size=3, exp="tiny").to_dict()))
+    save_netg(exp, 1, jax.tree.map(np.asarray, params))
+    assert sorted(p.name for p in exp.iterdir()) == ["content_args.json", "netG_1.ckpt"]
+
+    args = test_cli.build_parser().parse_args(["--dataset", "cifar10", "--exp", "tiny"])
+    loaded = test_cli.load_generator(exp, test_cli.load_config(exp, args), 1, torch.device(CPU))
+    x, z = randn(60, 3, 16, 16, 3), randn(61, 3, cfg.nz)
+    t = np.array([3, 1, 0], np.int32)
+    want = gen.apply({"params": params}, jnp.asarray(x), jnp.asarray(t), jnp.asarray(z),
+                     train=False)
+    with torch.no_grad():
+        got = nhwc(loaded(nchw(x), torch.from_numpy(t).long(), torch.from_numpy(z)))
+    assert np.std(np.asarray(want)) > 0.05
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=1e-4)
+
+    real = tmp_path / "real"
+    real.mkdir()
+    rs = np.random.RandomState(7)
+    for i in range(6):
+        Image.fromarray(rs.randint(0, 256, (16, 16, 3)).astype(np.uint8)).save(real / f"{i}.png")
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="Inception"):
-        test_cli.main(["--dataset", "cifar10", "--exp", "tiny", "--compute_fid",
-                       "--device", "cpu"])
-    (exp / "netG_1.pth").rename(exp / "netG_1.ckpt")
-    with pytest.raises(FileNotFoundError, match="converter"):
-        test_cli.main(["--dataset", "cifar10", "--exp", "tiny", "--epoch_id", "1",
-                       "--device", "cpu"])
+    monkeypatch.setenv("DDGAN_TPU_INCEPTION_RANDOM", "0")
+    monkeypatch.delenv("DDGAN_TPU_INCEPTION_PATH", raising=False)
+    with pytest.raises(FileNotFoundError, match="Real image directory"):
+        test_cli.main(["--dataset", "cifar10", "--exp", "tiny", "--epoch_id", "1", "--device",
+                       "cpu", "--compute_fid", "--real_img_dir", str(tmp_path / "none")])
+    fid = test_cli.main(["--dataset", "cifar10", "--exp", "tiny", "--epoch_id", "1",
+                         "--device", "cpu", "--seed", "5", "--compute_fid", "--num_fid_samples",
+                         "7", "--real_img_dir", str(real), "--fid_output_path", "out/fid.txt"])
+    assert f"FID = {fid}" in capsys.readouterr().out
+    fake = tmp_path / "generated_samples" / "cifar10"
+    assert sorted(p.name for p in fake.iterdir()) == [f"{i}.png" for i in range(7)]
+    assert float((tmp_path / "out" / "fid.txt").read_text()) == fid
+    want = jfid.calculate_fid_given_paths([str(fake), str(real)], batch_size=50, dims=2048)
+    assert fid > 0 and abs(fid - want) <= 1e-4 * want
+
     with pytest.raises(FileNotFoundError, match="netG_7"):
         test_cli.main(["--dataset", "cifar10", "--exp", "tiny", "--epoch_id", "7",
                        "--device", "cpu"])

@@ -5,10 +5,11 @@
 
 Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It drives the port's two sampler paths, its two
-train steps, its train loop through both train CLIs and its evaluation
-(FID through the sampler CLI, the Inception Score), with seeded weights,
-and fails (non-zero exit) if any phase fails. Each phase prints
-its wall time.
+train steps, its train loop through both train CLIs, its evaluation (FID
+through the sampler CLI, the Inception Score), the PSO optimizer, loop and
+hyperparameter search, and the content.ckpt bridge, with seeded weights,
+and fails (non-zero exit) if any phase fails. Each phase prints its wall
+time.
 
 The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
 
@@ -153,7 +154,48 @@ real ones are in the repository):
      256 samples as one .npy stack (46 pair_conv3x3, 20 down2x and 20 up2x
      launches per call), which `ddgan_torch.eval.inception_score.main`
      scores (splits 1, random logits): finite and >= 1, timed;
- 32. print the result, a `{"kernels": [...]}` line (the forward entries and
+
+PSO (`ddgan_torch.train.pso_optim`, `pso_step`, the loop's PSO branch, the
+HPO search `ddgan_torch.pso`) and a run between the packages
+(`ddgan_torch.compat.content`):
+
+ 32. `AdaptivePSO.step` at DiscriminatorSmall's full parameter set (swarm
+     20) on the card against the CPU plain path on the same draws, drawn on
+     the card and copied: two steps (every particle improving; equal
+     fitness values), every swarm tensor and the parameters within 1e-6 of
+     their max-abs, whether bit-exact printed; then G's full set on the
+     card: ms per swarm step for G and D (CUDA events), kernel launches, the
+     bytes bound at 3.35 TB/s and peak memory;
+ 33. three full-width flagship PSO steps in f32 (TF32 off) at batch 4, swarm
+     3 and trigger 2 (the third fires both swarms), on the card against the
+     CPU plain path with injected `StepDraws` and `PSODraws`: losses within
+     2e-3 max-abs; after the firing G's and D's parameters equal bit for
+     bit the previous global best or one particle's pre-update position;
+ 34. the flagship recipe with kind_of_optim 'pso' through `train_cli` in
+     this process: bf16, batch 64, synthetic 32² data, 22 steps an epoch,
+     epochs 0 and 1, no content.pth: 30 down2x and 12 up2x forward launches
+     a step and no other role, no pair_conv3x3, finite losses, losses.json,
+     final_loss.txt, netG_*.pth, 4 updates of each swarm (the 21st step and
+     the epoch end, twice); ms per step with and without a swarm update,
+     samples/s, the epoch-end swarm seconds, peak memory, the bytes a
+     content.pth would hold; the sampler CLI's 64 PNGs;
+ 35. the same at nf and ngf 32 with content.pth: two epochs, then --resume
+     for a third; the loaded swarms, ring buffers, counters and EMA equal
+     the first run's final state bit for bit and the global step continues;
+     bytes and seconds of each write and read;
+ 36. `python -m ddgan_torch.pso.cli` in process, in a directory holding
+     copies of the repository's configs (dataset synthetic, the rest as
+     shipped: 64², 1 channel, nf 128, batch 16): 2 particles x 2
+     iterations at 4 steps an epoch with combined scoring, the pso-optim
+     preset (2 x 1), and one evaluation in a subprocess; every score finite
+     or inf, best_hyperparameters.json written, no pso_eval_* directory or
+     configs/config_*.json left, the repository's configs/config.json
+     unchanged (sha256); seconds per evaluation, FIR calls by role;
+ 37. phase 27's content.pth to content.ckpt and back through `python -m
+     ddgan_torch.compat.content`, equal bit for bit (the optimizers'
+     learning rate apart), and `train_cli --resume` from content.ckpt
+     alone; bytes and seconds each way;
+ 38. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path), and
      the `{"ok": true, ...}` line last.
 
@@ -163,12 +205,15 @@ without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import json
+import logging
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -1280,13 +1325,14 @@ def _config_dir(tmp: Path, cfg) -> None:
 
 
 def loop_through_train_cli(cfg, bare: dict, fir2x, pair_conv, sample_launches: dict,
-                           timeout_s: float = 400) -> dict:
+                           timeout_s: float = 400, keep: Path | None = None) -> dict:
     """`cfg` through `python -m ddgan_torch.cli.train_cli --use_config_file
     True` in a subprocess, killed once losses.json holds three epochs (so
     that the subprocess prints a timed epoch after its first), then
     the same command with --resume in this process (launches counted), the
     checks of `check_loop_run` and of the kept loss history, and the
-    sampler CLI on the last netG_*.pth."""
+    sampler CLI on the last netG_*.pth. `keep`: a directory that receives
+    the run's content.pth, content_args.json and losses.json."""
     from ddgan_torch.cli import train_cli
     from ddgan_torch.train import checkpoint as ckpt
 
@@ -1321,6 +1367,10 @@ def loop_through_train_cli(cfg, bare: dict, fir2x, pair_conv, sample_launches: d
                   f"losses.json lost its history: before the kill {pre}, after {post}")
             bares = {"bare": bare, "bare_after": bare_step_ms(cfg, state)}
             n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
+            if keep is not None:
+                keep.mkdir(parents=True, exist_ok=True)
+                for name in ("content.pth", "content_args.json", "losses.json"):
+                    shutil.copy(exp / name, keep / name)
         finally:
             os.chdir(cwd)
     out = {"killed_after_s": killed["s"], "losses_before_kill": len(pre),
@@ -1754,6 +1804,642 @@ def is_run(cfg2, net2_16, dev, reset_counts, counts) -> dict:
            "inception_score_cli_s": is_s}
     print(f"IS {score!r} (std {std}) over {IS_SAMPLES} 256² samples; sampling {sampling_s:.3f} s "
           f"({calls} calls, launches {launches}); IS CLI {is_s:.3f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# PSO: the swarm update, the PSO step, the PSO loop and the HPO search; a
+# training run between content.ckpt and content.pth
+PSO_SWARM = 20  # the loop's swarm (the reference's)
+PSO_LOOP_ITERS = 22  # steps an epoch: the in-step swarm fires at the 21st
+PSO_RESUME_ITERS = 4
+PSO_RESUME_NF = 32  # keeps a PSO content.pth near 2 GB (2,044,343,757 bytes)
+
+
+def sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def kernel_launches(fn) -> int:
+    """Device kernels that one call of `fn` launches (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for ev in prof.events() if str(ev.device_type).endswith("CUDA")
+               and not getattr(ev, "is_user_annotation", False))
+
+
+def swarm_bytes(params) -> int:
+    """The least traffic of one swarm update: particles, velocities and
+    personal bests (swarm x P each), the global best and the parameters (P
+    each), each read once and written once, float32."""
+    p = sum(t.numel() for t in params)
+    return 2 * 4 * (3 * PSO_SWARM * p + 2 * p)
+
+
+def _swarm_error(a, b) -> dict:
+    """max-abs of a - b over max|b| for each kind of swarm tensor, and
+    whether all of them are equal to the last bit."""
+    out, exact = {}, True
+    for f in ("particles", "velocities", "pbest_pos", "gbest_pos"):
+        xs, ys = getattr(a, f), getattr(b, f)
+        err = max(float((x.cpu() - y).abs().max()) for x, y in zip(xs, ys))
+        scale = max(float(y.abs().max()) for y in ys)
+        exact &= all(torch.equal(x.cpu(), y) for x, y in zip(xs, ys))
+        out[f] = err / scale
+    for f in ("pbest_scores", "gbest_score", "c1", "c2", "iteration"):
+        x, y = getattr(a, f).cpu(), getattr(b, f)
+        exact &= torch.equal(x, y)
+        out[f] = float((x.double() - y.double()).abs().max())
+    return {"rel_err": out, "bit_exact": exact}
+
+
+def swarm_update_check(cfg, dev) -> dict:
+    """`AdaptivePSO.step` at DiscriminatorSmall's full parameter set on the
+    card against the CPU plain path on the same draws (drawn on the card,
+    copied): two steps, the first where every particle improves, the second
+    with equal fitness values; every tensor within 1e-6 of its max-abs. Then
+    G's full set on the card alone, timed, with D's: ms per swarm step (CUDA
+    events, mean of 3 after a warm-up), kernel launches, the byte bound at
+    3.35 TB/s and peak memory."""
+    from ddgan_torch.models import NCSNpp, build_discriminator
+    from ddgan_torch.train import AdaptivePSO
+
+    pso = AdaptivePSO(swarm_size=PSO_SWARM)
+    c32 = cfg.replace(compute_dtype="float32")
+    d_cpu = [p.detach() for p in
+             build_discriminator(c32, generator=torch.Generator().manual_seed(40)).parameters()]
+    d_gpu = [p.to(dev, copy=True) for p in d_cpu]
+    g = torch.Generator(device=dev).manual_seed(41)
+    noise = [torch.randn((PSO_SWARM,) + tuple(p.shape), generator=g, device=dev) for p in d_gpu]
+    st_gpu = pso.init(d_gpu, noise=noise)
+    st_cpu = pso.init(d_cpu, noise=[n.cpu() for n in noise])
+    del noise
+    rs = np.random.RandomState(42)
+    fitness = [rs.uniform(1.0, 2.0, PSO_SWARM), np.repeat(rs.uniform(0.5, 0.9, PSO_SWARM // 2), 2)]
+    out: dict = {"D_parameters": sum(p.numel() for p in d_cpu), "steps": []}
+    for losses in fitness:
+        draws = pso.draws(d_gpu, g)
+        loss = torch.tensor(losses, dtype=torch.float32)
+        pso.step(st_gpu, d_gpu, loss.to(dev), draws=draws)
+        t0 = time.perf_counter()
+        pso.step(st_cpu, d_cpu, loss, draws=type(draws)(*([t.cpu() for t in r] for r in draws)))
+        cpu_s = time.perf_counter() - t0
+        del draws
+        err = _swarm_error(st_gpu, st_cpu)
+        err["params"] = max(float((x.cpu() - y).abs().max()) / float(y.abs().max())
+                            for x, y in zip(d_gpu, d_cpu))
+        err["cpu_s"] = cpu_s
+        out["steps"].append(err)
+        worst = max(max(v for k, v in err["rel_err"].items() if k in
+                        ("particles", "velocities", "pbest_pos", "gbest_pos")), err["params"])
+        check(worst <= 1e-6 and all(err["rel_err"][k] == 0 for k in ("pbest_scores", "gbest_score",
+                                                                       "c1", "c2", "iteration")),
+              f"swarm update GPU vs CPU: {err}")
+        print(f"swarm update, DiscriminatorSmall ({out['D_parameters']} parameters x "
+              f"{PSO_SWARM}): GPU vs CPU max-abs/max|ref| {err['rel_err']}, params "
+              f"{err['params']:.3g}; bit-exact {err['bit_exact']}; CPU {cpu_s:.2f} s")
+    del st_cpu, d_cpu
+
+    timing = {}
+    g_gpu = [p.detach().to(dev) for p in
+             NCSNpp.from_config(c32, generator=torch.Generator().manual_seed(43)).parameters()]
+    for name, params, st in (("D", d_gpu, st_gpu), ("G", g_gpu, None)):
+        if st is None:
+            st = pso.init(params, g)
+        loss = torch.rand(PSO_SWARM, generator=g, device=dev)
+        pso.step(st, params, loss, g)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()  # from what is allocated now: the swarm(s)
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pso.step(st, params, torch.rand(PSO_SWARM, generator=g, device=dev), g)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        n_bytes = swarm_bytes(params)
+        row = {"parameters": sum(p.numel() for p in params), "ms": float(np.mean(times)),
+               "ms_each": times, "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+               "launches": kernel_launches(lambda: pso.step(st, params, loss, g)),
+               "tensors": len(params),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        timing[name] = row
+        print(f"swarm update {name}: {row['parameters']} parameters x {PSO_SWARM}, "
+              f"{row['ms']:.3f} ms per step ({row['bound_share']:.1%} of its "
+              f"{row['bound_ms']:.3f} ms bound, {n_bytes / 1e9:.2f} GB at 3.35 TB/s), "
+              f"{row['launches']} kernel launches over {row['tensors']} tensors, peak memory "
+              f"{row['peak_memory_gb']:.2f} GB")
+        del st
+    out["timing"] = timing
+    return out
+
+
+def _same_as_one_of(params, candidates) -> int | None:
+    """The index of the candidate (a list of tensors like `params`) that
+    `params` equals bit for bit, or None."""
+    for j, cand in enumerate(candidates):
+        if all(torch.equal(p.detach(), c) for p, c in zip(params, cand)):
+            return j
+    return None
+
+
+def pso_step_check(cfg, g_sd, d_sd, dev, batch: int = 4, swarm: int = 3, trigger: int = 2) -> dict:
+    """Three full-width f32 PSO steps (TF32 off) with a swarm of 3 and a
+    trigger of 2, so that the third fires both swarms, on the card against
+    the port's CPU plain path: the same weights, swarms and injected draws
+    (`StepDraws`, `PSODraws`). Losses within 2e-3 max-abs; after the firing,
+    G's and D's parameters equal bit for bit the previous global best or one
+    particle's pre-update position, on both devices."""
+    from ddgan_torch.diffusion import DiffusionCoefficients, PosteriorCoefficients
+    from ddgan_torch.models import NCSNpp, build_discriminator
+    from ddgan_torch.train import (AdaptivePSO, PSODraws, PSOTrainState, StepDraws, draw_step,
+                                   ema_init, make_pso_train_step)
+
+    c = cfg.replace(compute_dtype="float32")
+    pso = AdaptivePSO(swarm_size=swarm)
+    g = torch.Generator(device=dev).manual_seed(44)
+    runs = {}
+    for where in ("gpu", "cpu"):
+        d = dev if where == "gpu" else torch.device("cpu")
+        gen, disc = NCSNpp.from_config(c), build_discriminator(c)
+        gen.load_state_dict(g_sd)
+        disc.load_state_dict(d_sd)
+        gen, disc = gen.to(d), disc.to(d)
+        if where == "gpu":
+            noise = {k: [torch.randn((swarm,) + tuple(p.shape), generator=g, device=dev)
+                         for p in m.parameters()] for k, m in (("G", gen), ("D", disc))}
+        state = PSOTrainState(
+            gen, disc, pso_G=pso.init(list(gen.parameters()), noise=[n.to(d) for n in noise["G"]]),
+            pso_D=pso.init(list(disc.parameters()), noise=[n.to(d) for n in noise["D"]]),
+            ema_G=ema_init(gen), loss_buf_G=torch.zeros(trigger + 1, device=d),
+            loss_buf_D=torch.zeros(trigger + 1, device=d))
+        step = make_pso_train_step(
+            DiffusionCoefficients.create(c.num_timesteps, c.beta_min, c.beta_max, device=d),
+            PosteriorCoefficients.create(c.num_timesteps, c.beta_min, c.beta_max, device=d),
+            pso, num_timesteps=c.num_timesteps, nz=c.nz, ema_decay=c.ema_decay, use_ema=True,
+            trigger=trigger)
+        runs[where] = (state, step, d)
+    del noise
+    real = real_batch(c, batch, 45)
+    out: dict = {"steps": []}
+    for i in range(trigger + 1):
+        draws = draw_step(real, c.num_timesteps, c.nz, torch.Generator().manual_seed(46 + i))
+        fires = i == trigger
+        pso_draws = None
+        if fires:
+            sg = runs["gpu"][0]
+            pso_draws = (pso.draws(list(sg.disc.parameters()), g),
+                         pso.draws(list(sg.gen.parameters()), g))
+        metrics, picks = {}, {}
+        for where, (state, step, d) in runs.items():
+            before = {net: ([x.clone() for x in getattr(state, "pso_" + net).gbest_pos],
+                            [[x[j].clone() for x in getattr(state, "pso_" + net).particles]
+                             for j in range(swarm)]) for net in ("G", "D")} if fires else None
+            pd = None if pso_draws is None else tuple(
+                PSODraws(*([t.to(d) for t in r] for r in dr)) for dr in pso_draws)
+            t0 = time.perf_counter()
+            m = step(state, real.to(d), None, 0.0, 0.0,
+                     draws=StepDraws(*(t.to(d) for t in draws)), pso_draws=pd)
+            sync(d)
+            metrics[where] = {k: float(v) for k, v in m._asdict().items()}
+            metrics[where]["s"] = time.perf_counter() - t0
+            if fires:
+                for net, module in (("G", state.gen), ("D", state.disc)):
+                    old_gbest, old_parts = before[net]
+                    params = list(module.parameters())
+                    j = _same_as_one_of(params, old_parts)
+                    prev = all(torch.equal(p.detach(), x) for p, x in zip(params, old_gbest))
+                    check(j is not None or prev, f"PSO step {i} ({where}): {net}'s parameters are "
+                          "neither the previous gbest nor a particle's pre-update position")
+                    picks[f"{where}_{net}"] = "previous gbest" if j is None else f"particle {j}"
+            del before
+        err = max(abs(metrics["gpu"][k] - metrics["cpu"][k]) for k in
+                  ("errD", "errD_real", "errD_fake", "errG"))
+        check(err <= 2e-3 and all(np.isfinite(list(metrics["gpu"].values()))),
+              f"PSO step {i}: GPU {metrics['gpu']} CPU {metrics['cpu']}")
+        row = {"step": i, "fires": fires, "loss_max_abs": err, "gpu": metrics["gpu"],
+               "cpu": metrics["cpu"], "picks": picks}
+        if fires:
+            sg, sc = runs["gpu"][0], runs["cpu"][0]
+            row["swarm_gpu_vs_cpu"] = {net: _swarm_error(getattr(sg, "pso_" + net),
+                                                         getattr(sc, "pso_" + net))
+                                       for net in ("G", "D")}
+            row["params_bit_equal"] = all(
+                torch.equal(p.detach().cpu(), q.detach())
+                for a, b in ((sg.gen, sc.gen), (sg.disc, sc.disc))
+                for p, q in zip(a.parameters(), b.parameters()))
+            check(all(picks[f"gpu_{net}"] == picks[f"cpu_{net}"] for net in ("G", "D"))
+                  and row["params_bit_equal"],
+                  f"PSO step {i}: the GPU picked {picks}; parameters GPU == CPU bit for bit: "
+                  f"{row['params_bit_equal']}")
+            pos_err = max(e["rel_err"][f] for e in row["swarm_gpu_vs_cpu"].values()
+                          for f in ("particles", "velocities", "pbest_pos", "gbest_pos"))
+            check(pos_err <= 1e-6, f"PSO step {i}: swarm positions GPU vs CPU {pos_err:.3g} "
+                  "of max|ref|")
+        out["steps"].append(row)
+        print(f"PSO step {i}{' (fires both swarms)' if fires else ''}: losses GPU vs CPU "
+              f"max-abs {err:.3g}; errD {metrics['gpu']['errD']:.5f} errG "
+              f"{metrics['gpu']['errG']:.5f}; {picks if fires else ''}"
+              + (f" parameters GPU == CPU bit for bit: {row['params_bit_equal']}" if fires else ""))
+    return out
+
+
+def content_bytes(state) -> int:
+    """The tensor bytes a content.pth of `state` holds (weights, EMA, and
+    the swarms or the Adam moments), without the pickle's own."""
+    from ddgan_torch.train import PSOTrainState
+
+    tensors = list(state.gen.state_dict().values()) + list(state.disc.state_dict().values())
+    tensors += list((state.ema_G or {}).values())
+    if isinstance(state, PSOTrainState):
+        for sw, buf in ((state.pso_G, state.loss_buf_G), (state.pso_D, state.loss_buf_D)):
+            for f in ("particles", "velocities", "pbest_pos", "gbest_pos"):
+                tensors += getattr(sw, f)
+            tensors += [sw.pbest_scores, sw.gbest_score, sw.c1, sw.c2, sw.iteration, buf]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_pso_steps(cfg, state, dev, n: int = 4) -> dict:
+    """ms per PSO step on the loop's final state (CUDA events), steps that do
+    not fire the swarms and steps that fire both apart (the counts are set
+    before each call), with samples/s."""
+    from ddgan_torch.diffusion import DiffusionCoefficients, PosteriorCoefficients
+    from ddgan_torch.train import AdaptivePSO, make_pso_train_step
+
+    step = make_pso_train_step(
+        DiffusionCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev),
+        PosteriorCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev),
+        AdaptivePSO(swarm_size=PSO_SWARM), num_timesteps=cfg.num_timesteps, nz=cfg.nz,
+        ema_decay=cfg.ema_decay, use_ema=True)
+    real = real_batch(cfg, cfg.batch_size, 47).to(dev)
+    rng = torch.Generator(device=dev).manual_seed(48)
+    out = {}
+    for label, count in (("plain_step", 0), ("swarm_step", 20)):
+        times = []
+        for i in range(n + 1):
+            state.buf_count_G = state.buf_count_D = count
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(state, real, rng, 0.0, 0.0)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        out[label] = float(np.mean(times))
+        out[label + "_samples_per_s"] = cfg.batch_size / out[label] * 1e3
+    return out
+
+
+def pso_loop_through_train_cli(cfg, fir2x, pair_conv, sample_launches: dict) -> dict:
+    """The flagship recipe with kind_of_optim 'pso' through
+    `ddgan_torch.cli.train_cli` in this process, epochs 0 and 1 of
+    PSO_LOOP_ITERS steps at batch 64 in bf16 on synthetic 32² data, no
+    content.pth: the forward rows of `expected_fir_calls(3, 3, r1=False,
+    shared=False)` each step and no other role, no pair_conv3x3, finite
+    losses, losses.json, final_loss.txt and netG_*.pth, the in-step swarm at
+    each epoch's 21st step and the epoch-end one (4 updates of each swarm);
+    then the timed steps on the final state and the sampler CLI's 64 PNGs."""
+    from ddgan_torch.cli import train_cli
+    from ddgan_torch.train import checkpoint as ckpt
+
+    n_steps = (cfg.num_epoch + 1) * cfg.limited_iter
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / cfg.dataset / cfg.exp
+        _config_dir(tmp, cfg)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            _reset(fir2x, pair_conv)
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with Tee() as tee, CheckpointIO(ckpt) as io_:
+                state = train_cli.main(["--use_config_file", "True", "--exp", cfg.exp,
+                                        "--num_epoch", str(cfg.num_epoch)])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            calls = _calls(fir2x, pair_conv)
+            per_step = expected_fir_calls(3, len(cfg.ch_mult) - 1, r1=False, shared=False)
+            want = {k: {r: (n * n_steps if r == "forward" else 0) for r, n in roles.items()}
+                    for k, roles in per_step.items()}
+            check(calls["fir"] == want and fir2x.LAUNCHES == {k: v["forward"]
+                                                              for k, v in want.items()},
+                  f"PSO loop: FIR calls {calls['fir']}, launches {fir2x.LAUNCHES}, expected {want}")
+            check(pair_conv.LAUNCHES["pair_conv3x3"] == 0, "PSO loop launched pair_conv3x3")
+            losses = json.loads((exp / "losses.json").read_text())
+            check([e["epoch"] for e in losses] == [1, 2]
+                  and all(np.isfinite([e["G_loss"], e["D_loss"]]).all() for e in losses),
+                  f"PSO loop losses.json: {losses}")
+            check((exp / "final_loss.txt").exists() and not (exp / "content.pth").exists(),
+                  "PSO loop: final_loss.txt missing or content.pth written")
+            check_netg_files(exp, cfg, range(cfg.num_epoch + 1))
+            check(state.step == n_steps and int(state.pso_G.iteration) == 4
+                  and int(state.pso_D.iteration) == 4,
+                  f"PSO loop: step {state.step}, swarm updates G {int(state.pso_G.iteration)} "
+                  f"D {int(state.pso_D.iteration)}")
+            epochs = epoch_times(tee.text())
+            swarm_s = [float(x) for x in re.findall(r"epoch-end swarm ([0-9.]+)s", tee.text())]
+            pred = content_bytes(state)
+            steps = time_pso_steps(cfg, state, next(state.gen.parameters()).device)
+            del state
+            torch.cuda.empty_cache()
+            # without save_content the loop writes no content_args.json (as the
+            # JAX package's), which the sampler CLI reads: written as phase 7 does
+            (exp / "content_args.json").write_text(json.dumps(cfg.to_dict()))
+            n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
+        finally:
+            os.chdir(cwd)
+    out = {"steps": n_steps, "run_s": run_s, "peak_memory_gb": peak, "launches": calls,
+           "epochs": [{**e, "ms_per_step": 1e3 * e["s"] / e["iters"]} for e in epochs],
+           "epoch_end_swarm_s": swarm_s, "content_pth_tensor_bytes": pred,
+           "timed_steps": steps, "checkpoint_io": io_.summary(), "pngs": n_png}
+    print(json.dumps({"pso_loop_flagship": out}))
+    print(f"PSO loop: {n_steps} steps in {run_s:.1f} s; epochs "
+          + ", ".join(f"{e['ms_per_step']:.1f} ms/step" for e in out["epochs"])
+          + f"; epoch-end swarm {swarm_s} s; bare PSO step {steps['plain_step']:.3f} ms "
+          f"({steps['plain_step_samples_per_s']:.1f} samples/s), one that fires both swarms "
+          f"{steps['swarm_step']:.3f} ms; peak memory {peak:.2f} GB; a content.pth would hold "
+          f"{pred} tensor bytes ({pred / 1e9:.2f} GB); {n_png} PNGs")
+    return out
+
+
+def _assert_state_equal(a, b, what: str) -> None:
+    """Two PSO states equal bit for bit: weights, swarms, buffers, counters, EMA."""
+    for x, y in ((a.gen, b.gen), (a.disc, b.disc)):
+        for (k, p), q in zip(x.state_dict().items(), y.state_dict().values()):
+            check(torch.equal(p, q), f"{what}: {k}")
+    for name in ("pso_G", "pso_D"):
+        sa, sb = getattr(a, name), getattr(b, name)
+        for f in ("particles", "velocities", "pbest_pos", "gbest_pos"):
+            check(all(torch.equal(x, y) for x, y in zip(getattr(sa, f), getattr(sb, f))),
+                  f"{what}: {name}.{f}")
+        for f in ("pbest_scores", "gbest_score", "c1", "c2", "iteration"):
+            check(torch.equal(getattr(sa, f), getattr(sb, f)), f"{what}: {name}.{f}")
+    check(torch.equal(a.loss_buf_G, b.loss_buf_G) and torch.equal(a.loss_buf_D, b.loss_buf_D)
+          and (a.buf_count_G, a.buf_count_D, a.step, a.epoch)
+          == (b.buf_count_G, b.buf_count_D, b.step, b.epoch), f"{what}: buffers and counters")
+    check(all(torch.equal(a.ema_G[k], b.ema_G[k]) for k in b.ema_G), f"{what}: EMA")
+
+
+def pso_resume(cfg, fir2x, pair_conv) -> dict:
+    """The PSO recipe at nf PSO_RESUME_NF through `train_cli`: epochs 0 and
+    1 with content.pth written, then --resume for epoch 2. The state the
+    resume loads equals the first run's final state bit for bit, and the
+    global step continues; the bytes and seconds of each write and read."""
+    from ddgan_torch.cli import train_cli
+    from ddgan_torch.train import checkpoint as ckpt
+
+    argv = ["--use_config_file", "True", "--exp", cfg.exp]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        _config_dir(tmp, cfg)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        loaded = []
+        try:
+            with CheckpointIO(ckpt) as io_:
+                first = train_cli.main(argv + ["--num_epoch", "1"])
+                timed_load = ckpt.load_content
+
+                def load_and_keep(exp_path, state):
+                    out = timed_load(exp_path, state)
+                    _assert_state_equal(state, first, "the resumed state against the saved one")
+                    loaded.append(state.epoch)
+                    return out
+
+                ckpt.load_content = load_and_keep
+                second = train_cli.main(argv + ["--num_epoch", "2", "--resume"])
+        finally:
+            os.chdir(cwd)
+    check(loaded == [2] and second.step == first.step + cfg.limited_iter == 3 * cfg.limited_iter
+          and second.epoch == 3, f"PSO resume: loaded {loaded}, steps {first.step} -> "
+          f"{second.step}, epoch {second.epoch}")
+    out = {"parameters_G": sum(p.numel() for p in first.gen.parameters()),
+           "steps": [first.step, second.step], "checkpoint_io": io_.summary()}
+    for key, row in out["checkpoint_io"].items():
+        print(f"PSO resume (nf {cfg.num_channels_dae}) {key}: {row['bytes']} bytes, "
+              f"{row['mean_s']:.3f} s mean over {row['count']} ({row['gb_per_s']:.2f} GB/s)")
+    print(f"PSO resume: the loaded swarms, ring buffers, counters and EMA equal the saved ones "
+          f"bit for bit; global step {first.step} -> {second.step}")
+    return out
+
+
+def _sha256(path: Path) -> str:
+    import hashlib
+
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+class _ErrorLog(logging.Handler):
+    """Keeps the error records that reach a logger (an evaluation that fails
+    logs one to ddgan_torch.pso)."""
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.records: list = []
+
+    def emit(self, record) -> None:
+        self.records.append(record.getMessage()[:2000])
+
+
+def hpo_search(fir2x, pair_conv) -> dict:
+    """`python -m ddgan_torch.pso.cli` in this process, in a directory that
+    holds copies of the repository's configs/config.json (dataset switched
+    to synthetic, the rest as shipped) and configs/search_space_params.json:
+    2 particles x 2 iterations of 4 steps with combined scoring; the
+    pso-optim preset, 2 particles x 1 iteration; one evaluation in a
+    subprocess. Every evaluation must train to its end: no evaluation
+    logs a failure, each leaves a losses.json of its epochs and a finite
+    final_loss.txt for its scorer (read by a spy on the scorers), and each
+    score is finite. The FIR calls by role over the in-process evaluations
+    must be `expected_fir_calls` over the steps they ran (a subprocess
+    counts its own). best_hyperparameters.json written, no pso_eval_*
+    directory or configs/config_*.json left, the repository's config
+    unchanged; seconds per evaluation."""
+    from ddgan_torch.pso import cli as pso_cli
+    from ddgan_torch.pso import evaluate as pso_eval
+
+    repo_cfg = ROOT / "configs" / "config.json"
+    sha0 = _sha256(repo_cfg)
+    shipped = json.loads(repo_cfg.read_text())
+    iters = 4
+    runs = {"search": (["--num_particles", "2", "--num_iterations", "2",
+                        "--limited_iteration_mode", str(iters), "--scoring", "combined",
+                        "--eval_mode", "inprocess"], 1),
+            "pso_optim": (["--preset", "pso-optim", "--num_particles", "2", "--num_iterations",
+                           "1", "--limited_iteration_mode", str(iters)], 5),
+            "subprocess": (["--num_particles", "1", "--num_iterations", "1",
+                            "--limited_iteration_mode", str(iters), "--eval_mode", "subprocess"],
+                           1)}
+    out: dict = {}
+    inner = pso_cli.make_evaluator
+    scorers = {"compute_loss": pso_eval.compute_loss,
+               "loss_stability_score": pso_eval.loss_stability_score}
+    reads: list = []
+
+    def spy(name):
+        def scorer(exp_path, *args, **kw):
+            exp = Path(exp_path)
+            losses = exp / "losses.json"
+            final = exp / "final_loss.txt"
+            reads.append({"epochs": len(json.loads(losses.read_text())) if losses.exists()
+                          else None,
+                          "final_G_loss": float(final.read_text()) if final.exists() else None})
+            return scorers[name](exp_path, *args, **kw)
+        return scorer
+
+    errors = _ErrorLog()
+    want: dict = {}  # the in-process evaluations' FIR calls
+    n_d = 3 if str(shipped["disc_small"]).lower() == "yes" else 6
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "configs").mkdir()
+        (tmp / "configs" / "config.json").write_text(json.dumps({**shipped,
+                                                                "dataset": "synthetic"}))
+        shutil.copy(ROOT / "configs" / "search_space_params.json", tmp / "configs")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        logging.getLogger("ddgan_torch").addHandler(errors)  # the CLI resets its own
+        try:
+            _reset(fir2x, pair_conv)
+            for name, (argv, num_epoch) in runs.items():
+                evals = []
+                reads.clear()
+
+                def timed_evaluator(*args, **kw):
+                    evaluate = inner(*args, **kw)
+
+                    def timed(position, seed):
+                        t0 = time.perf_counter()
+                        score = evaluate(position, seed)
+                        evals.append({"s": time.perf_counter() - t0, "score": score})
+                        return score
+                    return timed
+
+                pso_cli.make_evaluator = timed_evaluator
+                for f in scorers:
+                    setattr(pso_eval, f, spy(f))
+                with Tee() as tee:
+                    best = pso_cli.main(argv + ["--batch_size", "16"])
+                for f, fn in scorers.items():
+                    setattr(pso_eval, f, fn)
+                check(errors.records == [], f"HPO {name}: failed evaluations {errors.records}")
+                scores = [float(m) for m in re.findall(r"Score: (\S+)", tee.text())]
+                check(len(scores) == len(evals) == len(reads)
+                      and all(np.isfinite(s) for s in scores),
+                      f"HPO {name}: scores {scores} over {len(evals)} evaluations")
+                epochs = num_epoch + 1  # the loop runs epochs 0..num_epoch
+                check(all(r["epochs"] == epochs and r["final_G_loss"] is not None
+                          and np.isfinite(r["final_G_loss"]) for r in reads),
+                      f"HPO {name}: what the evaluations left for their scorers {reads}")
+                for e, r in zip(evals, reads):
+                    e.update(r)
+                if "subprocess" not in argv:
+                    for _ in evals:
+                        for k, roles in expected_run_calls(
+                                range(epochs * iters), int(shipped["lazy_reg"]), n_d,
+                                len(shipped["ch_mult"]) - 1,
+                                shared=int(shipped["image_size"]) >= 256).items():
+                            for role, n in roles.items():
+                                want.setdefault(k, {}).setdefault(role, 0)
+                                want[k][role] += n
+                check((tmp / "best_hyperparameters.json").exists()
+                      and json.loads((tmp / "best_hyperparameters.json").read_text()) == best,
+                      f"HPO {name}: best_hyperparameters.json")
+                left = sorted(str(p.relative_to(tmp)) for p in tmp.rglob("*")
+                              if p.name.startswith("pso_eval_") or p.name.startswith("config_"))
+                check(left == [], f"HPO {name}: left behind {left}")
+                out[name] = {"evaluations": evals, "scores": scores,
+                             "s_per_evaluation": float(np.mean([e["s"] for e in evals])),
+                             "best": best}
+                print(f"HPO {name}: {len(evals)} evaluations, scores {scores}, final G losses "
+                      f"{[r['final_G_loss'] for r in reads]}, "
+                      f"{out[name]['s_per_evaluation']:.2f} s per evaluation")
+            torch.cuda.synchronize()
+            calls = _calls(fir2x, pair_conv)
+            launches = {"fir": dict(fir2x.LAUNCHES), "pair_conv3x3": dict(pair_conv.LAUNCHES)}
+        finally:
+            for f, fn in scorers.items():
+                setattr(pso_eval, f, fn)
+            pso_cli.make_evaluator = inner
+            logging.getLogger("ddgan_torch").removeHandler(errors)
+            os.chdir(cwd)
+    check(_sha256(repo_cfg) == sha0, "the repository's configs/config.json changed")
+    check(calls["fir"] == want
+          and launches["fir"] == {k: sum(v.values()) for k, v in want.items()},
+          f"HPO: FIR calls {calls['fir']}, launches {launches['fir']}, expected {want}")
+    check(not any(calls["pair_conv3x3"].values()),
+          f"HPO: pair_conv3x3 {calls['pair_conv3x3']} at 64²")
+    out["launches"] = calls
+    print(f"HPO in-process evaluations: FIR calls by role {calls['fir']} (as expected over "
+          f"their steps), pair_conv3x3 {calls['pair_conv3x3']}; the repository's "
+          "configs/config.json unchanged")
+    return out
+
+
+def content_round_trip(kept: Path, cfg) -> dict:
+    """Phase 27's flagship Adam run: content.pth to content.ckpt
+    (`python -m ddgan_torch.compat.content --to ckpt`) and back (`--to
+    pth`), every tensor and counter equal bit for bit (the optimizers'
+    learning rate apart: the step sets it, and content.ckpt does not hold
+    it); then `train_cli --resume` from a directory that holds only
+    content.ckpt (with its args and losses) continues the run for one epoch."""
+    from ddgan_torch.cli import train_cli
+    from ddgan_torch.compat import content
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / cfg.dataset / cfg.exp
+        shutil.copytree(kept, exp)
+        orig = torch.load(exp / "content.pth", map_location="cpu", weights_only=False)
+        to_ckpt = content.main([str(exp), "--to", "ckpt"])
+        (exp / "content.pth").unlink()
+        to_pth = content.main([str(exp), "--to", "pth"])
+        back = torch.load(exp / "content.pth", map_location="cpu", weights_only=False)
+
+        def equal(x, y, path=""):
+            if path.endswith("/param_groups/0/lr"):
+                return
+            if isinstance(y, (list, tuple)):
+                y, x = dict(enumerate(y)), dict(enumerate(x))
+            if isinstance(y, dict):
+                check(isinstance(x, dict) and set(x) == set(y), f"round trip {path}: keys")
+                for k in y:
+                    equal(x[k], y[k], f"{path}/{k}")
+            elif isinstance(y, torch.Tensor):
+                check(x.dtype == y.dtype and torch.equal(x, y), f"round trip {path}")
+            else:
+                check(x == y, f"round trip {path}: {x} != {y}")
+
+        equal(back, orig)
+        (exp / "content.pth").unlink()
+        _config_dir(tmp, cfg)
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            with Tee() as tee:
+                state = train_cli.main(["--use_config_file", "True", "--exp", cfg.exp,
+                                        "--num_epoch", str(orig["epoch"]), "--resume"])
+        finally:
+            os.chdir(cwd)
+    m = re.search(r"=> Loaded checkpoint \(epoch (\d+)\)", tee.text())
+    check(m is not None and int(m[1]) == orig["epoch"]
+          and state.step == orig["global_step"] + cfg.limited_iter,
+          f"resume from content.ckpt: {m and m[0]}, step {state.step}")
+    out = {"to_ckpt": to_ckpt, "to_pth": to_pth, "resumed_step": state.step}
+    print(f"content round trip: {to_ckpt['read_bytes']} B content.pth -> "
+          f"{to_ckpt['write_bytes']} B content.ckpt in {to_ckpt['read_s']:.2f} + "
+          f"{to_ckpt['write_s']:.2f} s; back in {to_pth['read_s']:.2f} + "
+          f"{to_pth['write_s']:.2f} s; "
+          f"equal bit for bit; train_cli --resume from content.ckpt alone: epoch {m[1]}, global "
+          f"step {orig['global_step']} -> {state.step}")
     return out
 
 
@@ -2264,10 +2950,13 @@ def main() -> int:
     phase("27 the flagship train CLI at full width: killed after three epochs, resumed, sampled")
     del train256, st, stp, fst, fstep
     torch.cuda.empty_cache()
+    keep = Path(tempfile.mkdtemp(prefix="flagship_loop_"))  # phase 37's Adam run
+    atexit.register(shutil.rmtree, keep, ignore_errors=True)  # also when a phase fails
+    loop_cfg = cfg.replace(dataset="synthetic", exp="flagship_loop", limited_iter=LOOP_ITERS,
+                           num_epoch=LOOP_EPOCHS, save_ckpt_every=1)
     loops = {"flagship": loop_through_train_cli(
-        cfg.replace(dataset="synthetic", exp="flagship_loop", limited_iter=LOOP_ITERS,
-                    num_epoch=LOOP_EPOCHS, save_ckpt_every=1),
-        train_times["flagship"], fir2x, pair_conv, sample_launches=sampler_launches)}
+        loop_cfg, train_times["flagship"], fir2x, pair_conv, sample_launches=sampler_launches,
+        keep=keep)}
 
     phase("28 the CelebA-HQ 256 recipe through main_cli at full width, sampled at 256²")
     loops["celeba256"] = loop_through_main_cli(
@@ -2292,7 +2981,42 @@ def main() -> int:
     phase(f"31 Inception Score of {IS_SAMPLES} CelebA-HQ 256 samples (bf16 sampler, IS CLI)")
     evals["inception_score"] = is_run(cfg2, net2_16, dev, reset_counts, counts)
 
-    phase("32 result")
+    phase("32 the swarm update at full width: DiscriminatorSmall on the card against the CPU, "
+          "then G's and D's timed")
+    pso_runs = {"swarm_update": swarm_update_check(cfg, dev)}
+    torch.cuda.empty_cache()
+
+    phase("33 the flagship PSO step at full width: three f32 steps on the card against the CPU "
+          "(swarm 3, trigger 2)")
+    pso_runs["step_gpu_vs_cpu"] = pso_step_check(fcfg, fg_sd, fd_sd, dev)
+    torch.cuda.empty_cache()
+
+    phase("34 the flagship PSO loop through train_cli at full width (bf16, batch 64), sampled")
+    pso_cfg = cfg.replace(dataset="synthetic", exp="flagship_pso", kind_of_optim="pso",
+                          limited_iter=PSO_LOOP_ITERS, num_epoch=1, save_content=False,
+                          save_ckpt_every=1)
+    pso_runs["loop"] = pso_loop_through_train_cli(pso_cfg, fir2x, pair_conv, sampler_launches)
+    train_paths["flagship_pso_train_cli"] = pso_runs["loop"]["launches"]
+    torch.cuda.empty_cache()
+
+    phase(f"35 PSO resume at nf {PSO_RESUME_NF}: two epochs with content.pth, then --resume")
+    pso_runs["resume"] = pso_resume(
+        pso_cfg.replace(exp="pso_resume", num_channels_dae=PSO_RESUME_NF, ngf=PSO_RESUME_NF,
+                        limited_iter=PSO_RESUME_ITERS, save_content=True), fir2x, pair_conv)
+    torch.cuda.empty_cache()
+
+    phase("36 the PSO hyperparameter search in process on the card (the shipped config, "
+          "synthetic data)")
+    pso_runs["hpo"] = hpo_search(fir2x, pair_conv)
+    train_paths["pso_hpo_search"] = pso_runs["hpo"]["launches"]
+    torch.cuda.empty_cache()
+
+    phase("37 content.pth -> content.ckpt -> content.pth of phase 27's run; train_cli --resume "
+          "from content.ckpt")
+    pso_runs["content_round_trip"] = content_round_trip(keep, loop_cfg)
+    shutil.rmtree(keep)
+
+    phase("38 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
                   "celeba256_inception_score": evals["inception_score"]["launches"]}
@@ -2364,6 +3088,7 @@ def main() -> int:
                   {"celeba256_G": n_g_params, "celeba256_D": n_d_params},
                   "roles": role_times, "profile": train_profile},
         "eval": evals,
+        "pso": pso_runs,
         "build_s": build_s,
         "phase_s": PHASE_S,
     }))

@@ -8,7 +8,10 @@ end, and so does one-GPU training through the train CLIs (`cli.train_cli`,
 torch format, the datasets of `data/` that need no image decoder), and so does
 evaluation (`eval/`: FID-InceptionV3, FID and the Inception Score, and
 `--compute_fid` in the sampler CLI, which also reads the JAX package's
-`netG_*.ckpt` through `compat/msgpack.py`). The two
+`netG_*.ckpt` through `compat/msgpack.py`), and so does PSO (kind_of_optim
+'pso' through the train CLIs, `train/pso_optim.py` and `train/pso_step.py`;
+the hyperparameter search `pso/`), and a training run moves between the
+packages (`compat/content.py`: `content.ckpt` ↔ `content.pth`). The two
 kernels that the JAX package wrote in Pallas are hand-written CUDA kernels
 here, behind autograd Functions: the 2x FIR resampling (`ops/fir2x.py`,
 `csrc/fir2x.cu`) and the gated 3x3 conv (`ops/pair_conv.py`,

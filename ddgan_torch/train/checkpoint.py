@@ -12,7 +12,12 @@ files load into the reference's tools and into the port's sampler CLI:
      eta_min=1e-5)), and the EMA shadow of G's parameters under `emaG` (the
      reference's name for its EMA, ddgan.py:517), keyed like
      `named_parameters()`. Beside it, `content_args.json` holds the args
-     that JSON can hold, which the sampler CLI reads first.
+     that JSON can hold, which the sampler CLI reads first. A PSO run's
+     `optimizerG` / `optimizerD` hold its whole swarm instead (`PSOTrainState`:
+     particles, velocities, personal and global bests with their scores,
+     c1, c2, the iteration, the loss ring buffer and its count; tensors of a
+     parameter keyed like `named_parameters()`), and it has no schedulers,
+     so a resume continues bit for bit.
   2. `netG_{epoch}.pth`: G's full `state_dict()` in the reference's key
      names, with the EMA swapped in for the parameters (ddgan.py:563-569).
 
@@ -22,6 +27,7 @@ a kill during a write leaves the previous file whole.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from pathlib import Path
@@ -31,6 +37,8 @@ import torch
 
 from ..compat import strip_module_prefix
 from .optim import cosine_lr
+from .pso_optim import PSOState
+from .pso_step import PSOTrainState
 from .state import TrainState
 
 EMA_KEY = "emaG"
@@ -85,38 +93,78 @@ def _scheduler_state(base_lr: float, epochs_done: int, num_epoch: int) -> dict:
             "_last_lr": [cosine_lr(base_lr, epochs_done, num_epoch)]}
 
 
-def save_content(exp_path: str | Path, state: TrainState, args: Any) -> None:
+def _swarm_dict(swarm: PSOState, names: list[str], loss_buf: torch.Tensor,
+                buf_count: int) -> dict:
+    """A swarm and its network's loss buffer as a content.pth entry."""
+    per_param = {f.name: dict(zip(names, getattr(swarm, f.name)))
+                 for f in dataclasses.fields(PSOState) if isinstance(getattr(swarm, f.name), list)}
+    scalars = {f.name: getattr(swarm, f.name) for f in dataclasses.fields(PSOState)
+               if f.name not in per_param}
+    return {**per_param, **scalars, "loss_buf": loss_buf, "buf_count": int(buf_count)}
+
+
+def _swarm_from_dict(raw: dict, names: list[str]) -> PSOState:
+    return PSOState(**{f.name: [raw[f.name][n] for n in names]
+                       if isinstance(raw[f.name], dict) else raw[f.name]
+                       for f in dataclasses.fields(PSOState)})
+
+
+def _names(module: torch.nn.Module) -> list[str]:
+    return [k for k, _ in module.named_parameters()]
+
+
+def save_content(exp_path: str | Path, state: TrainState | PSOTrainState, args: Any) -> None:
     """Write `content.pth` and `content_args.json` (ddgan.py:545-561)."""
     exp_path = Path(exp_path)
     exp_path.mkdir(parents=True, exist_ok=True)
     a = _args_dict(args)
-    num_epoch = int(a.get("num_epoch", 0))
-    content = _to_cpu({
+    content = {
         "epoch": int(state.epoch),
         "global_step": int(state.step),
         "args": a,
         "netG_dict": state.gen.state_dict(),
         "netD_dict": state.disc.state_dict(),
-        "optimizerG": state.opt_G.state_dict(),
-        "optimizerD": state.opt_D.state_dict(),
-        "schedulerG": _scheduler_state(a.get("lr_g", 0.0), int(state.epoch), num_epoch),
-        "schedulerD": _scheduler_state(a.get("lr_d", 0.0), int(state.epoch), num_epoch),
         EMA_KEY: state.ema_G,
-    })
+    }
+    if isinstance(state, PSOTrainState):
+        content["optimizerG"] = _swarm_dict(state.pso_G, _names(state.gen), state.loss_buf_G,
+                                            state.buf_count_G)
+        content["optimizerD"] = _swarm_dict(state.pso_D, _names(state.disc), state.loss_buf_D,
+                                            state.buf_count_D)
+    else:
+        num_epoch = int(a.get("num_epoch", 0))
+        content.update({
+            "optimizerG": state.opt_G.state_dict(),
+            "optimizerD": state.opt_D.state_dict(),
+            "schedulerG": _scheduler_state(a.get("lr_g", 0.0), int(state.epoch), num_epoch),
+            "schedulerD": _scheduler_state(a.get("lr_d", 0.0), int(state.epoch), num_epoch),
+        })
+    content = _to_cpu(content)
     _replace_into(exp_path / "content.pth", lambda tmp: torch.save(content, tmp))
     write_json(exp_path / "content_args.json", {k: v for k, v in a.items() if _json_ok(v)})
 
 
-def load_content(exp_path: str | Path, state: TrainState) -> TrainState:
+def load_content(exp_path: str | Path, state: TrainState | PSOTrainState):
     """Restore `content.pth` into `state` in place (ddgan.py:371-410):
-    weights, optimizers, the EMA shadow (when both have one), and the step
-    and epoch counters. DDP 'module.' prefixes are stripped."""
+    weights, optimizers or swarms, the EMA shadow (when both have one), and
+    the step and epoch counters. DDP 'module.' prefixes are stripped."""
     device = next(state.gen.parameters()).device
     raw = torch.load(Path(exp_path) / "content.pth", map_location=device, weights_only=False)
     state.gen.load_state_dict(strip_module_prefix(raw["netG_dict"]))
     state.disc.load_state_dict(strip_module_prefix(raw["netD_dict"]))
-    state.opt_G.load_state_dict(raw["optimizerG"])
-    state.opt_D.load_state_dict(raw["optimizerD"])
+    pso = isinstance(state, PSOTrainState)
+    if pso != ("particles" in raw["optimizerG"]):
+        raise ValueError(f"{exp_path}/content.pth holds {'an Adam' if pso else 'a PSO'} run; "
+                         f"this run's kind_of_optim is {'pso' if pso else 'adam'}")
+    if pso:
+        for name, net in (("G", state.gen), ("D", state.disc)):
+            opt = raw["optimizer" + name]
+            setattr(state, "pso_" + name, _swarm_from_dict(opt, _names(net)))
+            setattr(state, "loss_buf_" + name, opt["loss_buf"])
+            setattr(state, "buf_count_" + name, int(opt["buf_count"]))
+    else:
+        state.opt_G.load_state_dict(raw["optimizerG"])
+        state.opt_D.load_state_dict(raw["optimizerD"])
     ema = raw.get(EMA_KEY)
     if ema is not None and state.ema_G is not None:
         with torch.no_grad():

@@ -17,16 +17,23 @@ Per epoch (reference parity):
     point, so a run killed at any moment resumes from an epoch whose losses
     and generator are on disk, and redoes the epoch after it.
 
+kind_of_optim 'pso' trains without gradients (`pso_step.py`): a constant
+learning rate (unused), no D-only steps, one swarm per network built as the
+JAX package builds it (max_iter = num_epoch * len(loader)), and at each
+epoch's end the epoch-end swarm update on the epoch's losses.
+
 `limited_iter` truncates epochs (ddgan.py:414-424). `profile_dir` records a
 `torch.profiler` trace of the first epoch into that directory, the
 counterpart of the JAX package's `jax.profiler` trace. The seed draws the
 initial weights from a CPU `torch.Generator`, then the seed of the one
 generator on the device that carries every step's draws and dropout masks,
-as the JAX package splits its key; a resume rebuilds both from the seed,
-as JAX's key restarts from PRNGKey(seed).
+as the JAX package splits its key (a PSO run's swarms are drawn from the
+latter); a resume rebuilds both from the seed, as JAX's key restarts from
+PRNGKey(seed). `--resume` takes `content.pth`, else a JAX package
+`content.ckpt` (`compat/content.py`).
 
-PSO (ROADMAP.md Queue 1 item 9) and ZeRO-1 (item 7) are not ported: those
-settings raise before any work.
+ZeRO-1 (ROADMAP.md Queue 1 item 7) is not ported: that setting raises
+before any work.
 """
 
 from __future__ import annotations
@@ -44,6 +51,14 @@ from ..diffusion import DiffusionCoefficients, PosteriorCoefficients
 from ..models import NCSNpp, build_discriminator
 from . import checkpoint as ckpt
 from .optim import ClippedAdam, cosine_lr
+from .pso_optim import AdaptivePSO
+from .pso_step import (
+    PSOTrainState,
+    create_pso_train_state,
+    make_pso_epoch_end,
+    make_pso_train_step,
+    pad_epoch_losses,
+)
 from .state import TrainState, create_train_state
 from .step import make_train_step
 
@@ -81,11 +96,22 @@ def build_loader(args, dataset, batch: int) -> DataLoader:
     return loader
 
 
+def build_adam_state(args, gen: torch.nn.Module, disc: torch.nn.Module) -> TrainState:
+    """The Adam train state of G and D (on their device) with each network's
+    clip, betas and weight decay from `args`. The EMA shadow is always
+    allocated, so a checkpoint resumes across an ema_decay change (as the
+    JAX package's fixed train-state structure)."""
+    return create_train_state(
+        gen, disc,
+        ClippedAdam(gen.parameters(), args.beta1_g, args.beta2_g, args.weight_decay_G,
+                    args.grad_clip_norm),
+        ClippedAdam(disc.parameters(), args.beta1_d, args.beta2_d, args.weight_decay_D,
+                    args.grad_clip_norm),
+        use_ema=True,
+    )
+
+
 def _refuse_unported(args) -> None:
-    if str(getattr(args, "kind_of_optim", "adam")).lower() == "pso":
-        raise NotImplementedError(
-            "kind_of_optim 'pso' (the AdaptivePSO inner optimizer) is not ported to "
-            "ddgan_torch yet (ROADMAP.md Queue 1 item 9); use kind_of_optim 'adam'.")
     if str(getattr(args, "optimizer_sharding", "replicated")).lower() == "zero1":
         raise NotImplementedError(
             "optimizer_sharding 'zero1' is not ported to ddgan_torch yet (ROADMAP.md Queue 1 "
@@ -115,12 +141,14 @@ def _start_profile(profile_dir, device: torch.device):
     return prof
 
 
-def train(args, dataset=None, device: str | torch.device | None = None) -> TrainState:
+def train(args, dataset=None, device: str | torch.device | None = None
+          ) -> TrainState | PSOTrainState:
     """Run training. `args` is a Config or any attribute bag with the
     reference's schema; `batch_size` is the batch of the one GPU. Runs on
     `device` (default: `_device.resolve_device`). Returns the final state."""
     _refuse_unported(args)
     device = resolve_device(device)
+    is_pso = str(getattr(args, "kind_of_optim", "adam")).lower() == "pso"
     # EMA disabled for decay <= 0, like the reference (ema.py:33 apply_ema)
     use_ema = bool(args.use_ema) and float(args.ema_decay) > 0.0
 
@@ -136,33 +164,38 @@ def train(args, dataset=None, device: str | torch.device | None = None) -> Train
     rng = torch.Generator(device=device).manual_seed(
         int(torch.randint(2**62, (1,), generator=init_rng)))
     gen, disc = gen.to(device), disc.to(device)
-    # the EMA shadow is always allocated, so a checkpoint resumes across an
-    # ema_decay change (as the JAX package's fixed train-state structure)
-    state = create_train_state(
-        gen, disc,
-        ClippedAdam(gen.parameters(), args.beta1_g, args.beta2_g, args.weight_decay_G,
-                    args.grad_clip_norm),
-        ClippedAdam(disc.parameters(), args.beta1_d, args.beta2_d, args.weight_decay_D,
-                    args.grad_clip_norm),
-        use_ema=True,
-    )
     coeff = DiffusionCoefficients.create(args.num_timesteps, args.beta_min, args.beta_max,
                                          args.use_geometric, device=device)
     pos_coeff = PosteriorCoefficients.create(args.num_timesteps, args.beta_min, args.beta_max,
                                              args.use_geometric, device=device)
-    step_kw = dict(num_timesteps=args.num_timesteps, nz=args.nz, r1_gamma=args.r1_gamma,
-                   lazy_reg=args.lazy_reg, ema_decay=args.ema_decay, use_ema=use_ema,
-                   r1_shared=str(getattr(args, "r1_shared", "auto")).lower())
-    step_fn = make_train_step(coeff, pos_coeff, **step_kw)
-    d_per_g = int(getattr(args, "d_updates_per_g_update", 1))
-    d_only_step = make_train_step(coeff, pos_coeff, update_g=False, **step_kw) if d_per_g > 1 \
-        else None
+    d_per_g = 1 if is_pso else int(getattr(args, "d_updates_per_g_update", 1))
+    d_only_step = pso_epoch_end = None
+    if is_pso:
+        pso = AdaptivePSO(swarm_size=20, max_iter=args.num_epoch * max(1, len(loader)))
+        state = create_pso_train_state(gen, disc, pso, rng, use_ema=True)
+        step_fn = make_pso_train_step(coeff, pos_coeff, pso, num_timesteps=args.num_timesteps,
+                                      nz=args.nz, ema_decay=args.ema_decay, use_ema=use_ema)
+        pso_epoch_end = make_pso_epoch_end(pso)
+    else:
+        state = build_adam_state(args, gen, disc)
+        step_kw = dict(num_timesteps=args.num_timesteps, nz=args.nz, r1_gamma=args.r1_gamma,
+                       lazy_reg=args.lazy_reg, ema_decay=args.ema_decay, use_ema=use_ema,
+                       r1_shared=str(getattr(args, "r1_shared", "auto")).lower())
+        step_fn = make_train_step(coeff, pos_coeff, **step_kw)
+        if d_per_g > 1:
+            d_only_step = make_train_step(coeff, pos_coeff, update_g=False, **step_kw)
 
     init_epoch = 0
-    if getattr(args, "resume", False) and (exp_path / "content.pth").exists():
-        ckpt.load_content(exp_path, state)
-        init_epoch = state.epoch
-        print(f"=> Loaded checkpoint (epoch {init_epoch})")
+    if getattr(args, "resume", False):
+        if (exp_path / "content.pth").exists():
+            ckpt.load_content(exp_path, state)
+        elif (exp_path / "content.ckpt").exists():
+            from ..compat.content import load_content_ckpt
+
+            load_content_ckpt(exp_path, state)
+        if state.epoch:
+            init_epoch = state.epoch
+            print(f"=> Loaded checkpoint (epoch {init_epoch})")
 
     limited = _limited_iter(args)
     losses_file = exp_path / "losses.json"
@@ -180,7 +213,7 @@ def train(args, dataset=None, device: str | torch.device | None = None) -> Train
     profile_dir = getattr(args, "profile_dir", None)
     for epoch in range(init_epoch, args.num_epoch + 1):
         loader.set_epoch(epoch)
-        if args.no_lr_decay:
+        if is_pso or args.no_lr_decay:
             lr_g, lr_d = float(args.lr_g), float(args.lr_d)
         else:
             lr_g = cosine_lr(args.lr_g, epoch, args.num_epoch)
@@ -211,6 +244,15 @@ def train(args, dataset=None, device: str | torch.device | None = None) -> Train
         loss_values_D = torch.stack(loss_values_D).tolist() if loss_values_D else []
         loss_values_G = torch.stack(loss_values_G).tolist() if loss_values_G else []
         dt = time.perf_counter() - epoch_t0  # the epoch's steps, synced by the fetch
+        swarm_s = None
+        if is_pso and loss_values_D:
+            # the epoch-end swarm update on the epoch's losses (ddgan.py:528-533)
+            swarm_t0 = time.perf_counter()
+            pso_epoch_end(state, pad_epoch_losses(loss_values_D, pso.swarm_size),
+                          pad_epoch_losses(loss_values_G, pso.swarm_size), rng)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            swarm_s = time.perf_counter() - swarm_t0
         if prof is not None:
             prof.stop()
 
@@ -233,9 +275,10 @@ def train(args, dataset=None, device: str | torch.device | None = None) -> Train
             ckpt.save_content(exp_path, state, args)
         n_it = len(loss_values_D)
         if n_it:
+            swarm = "" if swarm_s is None else f", epoch-end swarm {swarm_s:.3f}s"
             print(
                 f"[epoch {epoch}] {n_it} iters in {dt:.3f}s ({n_it / dt:.2f} it/s), "
-                f"saves {time.perf_counter() - save_t0:.3f}s, G {avg_g:.4f} D {avg_d:.4f}"
+                f"saves {time.perf_counter() - save_t0:.3f}s{swarm}, G {avg_g:.4f} D {avg_d:.4f}"
             )
 
     return state

@@ -1,14 +1,16 @@
-"""Image saving and reading, range mapping and random weights for checks.
+"""Image saving and reading, range mapping, random weights for checks, and
+the subprocess runner of the PSO search.
 
-`save_image` and `to_range_0_1` follow `ddgan_tpu/utils.py`; PNGs are
-encoded and decoded with the standard library (zlib) so the port needs no
-imaging package.
+`save_image`, `to_range_0_1` and `run_bash_command` follow
+`ddgan_tpu/utils.py`; PNGs are encoded and decoded with the standard
+library (zlib) so the port needs no imaging package.
 """
 
 from __future__ import annotations
 
 import math
 import struct
+import subprocess
 import zlib
 from pathlib import Path
 
@@ -204,6 +206,17 @@ def save_image(x: np.ndarray, path: str | Path, normalize: bool = False) -> None
 def to_range_0_1(x):
     """[-1,1] → [0,1] (test_ddgan.py:149)."""
     return (x + 1.0) / 2.0
+
+
+def run_bash_command(command: str) -> str:
+    """Run a shell command and return its standard output (pso.py:94-116,
+    `ddgan_tpu/utils.py:76`). A command that exits non-zero raises, with the
+    end of its standard error, so that a failed PSO evaluation is seen as one
+    (the JAX package's runner returns what it printed and drops the error)."""
+    res = subprocess.run(command, shell=True, capture_output=True, text=True, check=False)
+    if res.returncode != 0:
+        raise RuntimeError(f"{command!r} exited {res.returncode}:\n{res.stderr[-4000:]}")
+    return res.stdout
 
 
 @torch.no_grad()

@@ -120,3 +120,106 @@ def count_routed(monkeypatch) -> list:
 
     monkeypatch.setattr(pair_conv, "pair_conv3x3", counting)
     return calls
+
+
+# ---------------------------------------------------------------- train steps
+def np_step_draws(cfg, batch: int, seed: int) -> list:
+    """One train step's t, q-noises, z and posterior noise (D's, then G's),
+    NHWC, from a numpy seed: the order of `ddgan_torch.train.StepDraws`."""
+    rs = np.random.RandomState(seed)
+    shape = (batch, cfg.image_size, cfg.image_size, cfg.num_channels)
+    out = []
+    for _ in range(2):
+        out += [rs.randint(0, cfg.num_timesteps, batch).astype(np.int32),
+                rs.randn(*shape).astype(np.float32), rs.randn(*shape).astype(np.float32),
+                rs.randn(batch, cfg.nz).astype(np.float32), rs.randn(*shape).astype(np.float32)]
+    return out
+
+
+def torch_step_draws(np_draws):
+    from ddgan_torch.train import StepDraws
+
+    return StepDraws(*[torch.from_numpy(a).long() if a.ndim == 1 else
+                       (nchw(a) if a.ndim == 4 else torch.from_numpy(a)) for a in np_draws])
+
+
+def jax_forward_losses(jgen, jdisc, cfg):
+    """The PSO step's forward-only losses composed from the JAX package's
+    functions (`ddgan_tpu/train/pso_step.py:113-130` with injected noise,
+    dropout off): f(params_G, params_D, real, *draws) -> (errD_real,
+    errD_fake, errG)."""
+    from ddgan_tpu.diffusion import DiffusionCoefficients as JCoeff
+    from ddgan_tpu.diffusion import PosteriorCoefficients as JPos
+    from ddgan_tpu.diffusion import q_sample_pairs_with_noise as jq_pairs
+    from ddgan_tpu.diffusion import sample_posterior_with_noise as jposterior
+
+    coeff = JCoeff.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max)
+    pos = JPos.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max)
+
+    def apply_D(p, x, t, x_t):
+        return jdisc.apply({"params": p}, x, t, x_t).reshape(-1).astype(jnp.float32)
+
+    @jax.jit
+    def losses(pG, pD, real, t, nq, nn, z, npost, t2, nq2, nn2, z2, npost2):
+        x_t, x_tp1 = jq_pairs(coeff, real, t, nq, nn)
+        errD_real = jax.nn.softplus(-apply_D(pD, x_t, t, x_tp1)).mean()
+        x0 = jgen.apply({"params": pG}, x_tp1, t, z, train=True)
+        errD_fake = jax.nn.softplus(apply_D(pD, jposterior(pos, x0, x_tp1, t, npost), t,
+                                            x_tp1)).mean()
+        _, x_tp1_g = jq_pairs(coeff, real, t2, nq2, nn2)
+        x0g = jgen.apply({"params": pG}, x_tp1_g, t2, z2, train=True)
+        errG = jax.nn.softplus(-apply_D(pD, jposterior(pos, x0g, x_tp1_g, t2, npost2), t2,
+                                        x_tp1_g)).mean()
+        return errD_real, errD_fake, errG
+
+    return losses
+
+
+def port_list(tree, module: torch.nn.Module, lead: int = 0) -> list:
+    """A flax parameter tree (each leaf with `lead` leading axes) as the
+    port's tensors in `module.parameters()` order."""
+    from ddgan_torch.compat import state_dict_from_flax
+
+    sd = state_dict_from_flax(jax.tree.map(np.asarray, tree), lead=lead)
+    return [sd[k] for k, _ in module.named_parameters()]
+
+
+class Flat:
+    """A flax parameter tree as one float32 numpy vector (leaves in flatten
+    order) and back; `to_port` maps a (lead..., P) vector onto a module's tensors.
+    The JAX package's AdaptivePSO is elementwise, so it gives the same
+    values over the vector as over the tree, and its ops then run eagerly
+    over one shape instead of compiling once for every parameter's shape."""
+
+    def __init__(self, tree):
+        leaves, self.treedef = jax.tree.flatten(tree)
+        self.shapes = [l.shape for l in leaves]
+        self.cuts = np.cumsum([int(np.prod(sh)) for sh in self.shapes])[:-1]
+
+    def vec(self, tree, lead: int = 0) -> np.ndarray:
+        leaves = [np.asarray(l) for l in jax.tree.leaves(tree)]
+        return np.concatenate([l.reshape(l.shape[:lead] + (-1,)) for l in leaves], axis=-1)
+
+    def tree(self, vec):
+        vec = np.asarray(vec)
+        lead = vec.shape[:-1]
+        parts = np.split(vec, self.cuts, axis=-1)
+        return jax.tree.unflatten(self.treedef, [p.reshape(lead + sh)
+                                                 for p, sh in zip(parts, self.shapes)])
+
+    def to_port(self, vec, module):
+        return port_list(self.tree(vec), module, vec.ndim - 1)
+
+    def draws(self, key, vec, swarm: int, module):
+        """The r1, r2 of `AdaptivePSO.step` over the vector under `key` (the
+        2n = 2 keys of a one-leaf step), as the port's `PSODraws`."""
+        from ddgan_torch.train import PSODraws
+
+        k1, k2 = jax.random.split(key)
+        return PSODraws(self.to_port(jax.random.uniform(k1, (swarm,) + vec.shape), module),
+                        self.to_port(jax.random.uniform(k2, (swarm,) + vec.shape), module))
+
+    def noise(self, key, vec, swarm: int, module):
+        """The N(0, 1) draws of `AdaptivePSO.init` over the vector under `key`."""
+        return self.to_port(jax.random.normal(jax.random.split(key, 1)[0],
+                                              (swarm,) + vec.shape), module)

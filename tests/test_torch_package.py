@@ -74,6 +74,25 @@ def test_importing_every_module_leaves_jax_out():
     assert int(res.stdout.split()[0]) >= 15
 
 
+def test_pso_and_the_content_bridge_import_no_jax():
+    """The modules a user runs without JAX in reach: the PSO search, its CLIs
+    and the content.ckpt bridge (which reads and writes flax's format on its
+    own)."""
+    mods = ["ddgan_torch.pso", "ddgan_torch.pso.cli", "ddgan_torch.pso.run",
+            "ddgan_torch.pso.evaluate", "ddgan_torch.compat.content",
+            "ddgan_torch.data.converters", "ddgan_torch.train.pso_step"]
+    code = (
+        "import importlib, sys\n"
+        f"for n in {mods!r}: importlib.import_module(n)\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout + res.stderr
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -114,6 +133,23 @@ def test_entry_points_need_a_gpu_unless_the_cpu_is_asked_for(no_gpu, monkeypatch
     assert schedules.PosteriorCoefficients.create(4, 0.1, 20.0).betas.device.type == "cpu"
     with pytest.raises(RuntimeError, match="unsupported"):
         _device.resolve_device("meta")
+
+
+def test_pso_and_content_entry_points_need_a_gpu(no_gpu, monkeypatch, tmp_path):
+    """The PSO CLIs and the content converter raise without a GPU unless the
+    CPU is asked for, before they write anything."""
+    from ddgan_torch.compat import content
+    from ddgan_torch.pso import cli as pso_cli
+    from ddgan_torch.pso import evaluate
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pso_cli.main(["--num_particles", "1", "--num_iterations", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.make_evaluator()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        content.main([str(tmp_path), "--to", "pth"])
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_config_schema_is_the_jax_packages():

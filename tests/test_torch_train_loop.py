@@ -143,6 +143,125 @@ def test_loop_schedule_equals_the_jax_loops(name, tmp_path, monkeypatch):
     assert flags == [(i % cfg["limited_iter"]) % d == d - 1 for i in range(len(flags))]
 
 
+def test_pso_loop_schedule_equals_the_jax_loops(tmp_path, monkeypatch):
+    """kind_of_optim 'pso': both loops with recorder steps and recorder
+    epoch ends on the same synthetic set. Every step's batch, its learning
+    rates (constant), and the files before it; every epoch end's padded
+    losses (the recorded steps' errD and errG, +inf past the epoch) and the
+    files before it; losses.json."""
+    import ddgan_tpu.train.pso_step as jpso_step
+
+    n_dev = jax.local_device_count()
+    common = dict(TINY, exp="psosched", kind_of_optim="pso", limited_iter=3, num_epoch=2)
+    runs = {}
+
+    def recorders(kind, seen):
+        exp = lambda: exp_dir(tmp_path / kind, "psosched")  # noqa: E731
+
+        def make_step(*args, **kw):
+            def step(state, batch, key_or_rng, lr_g, lr_d, *_, **__):
+                if kind == "jax":
+                    x = np.asarray(batch)
+                else:
+                    x = batch.numpy().transpose(0, 2, 3, 1)
+                    state.step += 1
+                seen.append(("step", x, float(lr_g), float(lr_d), files(exp())))
+                flat = batch.reshape(-1)
+                errD, errG = flat[0], flat[-1]
+                if kind == "jax":
+                    return state, JStepMetrics(errD, errD, errD, errG, errD)
+                return StepMetrics(errD, errD, errD, errG, errD)
+            return step
+
+        def make_epoch_end(pso):
+            assert pso.swarm_size == 20
+            def epoch_end(state, loss_d, loss_g, key_or_rng):  # noqa: E306
+                seen.append(("epoch_end", np.asarray(loss_d), np.asarray(loss_g), files(exp())))
+                return state if kind == "jax" else None
+            return epoch_end
+
+        return make_step, make_epoch_end
+
+    real_init = jpso_step.create_pso_train_state
+
+    def zeros_init(key, gen, disc, pso, image_shape, nz, batch=2, use_ema=True):
+        # the recorders never read the state: its structure, zero-filled, is
+        # enough (compiling the swarms' init takes tens of seconds on the CPU)
+        shapes = jax.eval_shape(lambda k: real_init(k, gen, disc, pso, image_shape, nz,
+                                                    batch=batch, use_ema=use_ema), key)
+        return jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+
+    monkeypatch.setattr(jpso_step, "create_pso_train_state", zeros_init)
+    for kind, mod in (("jax", jloop), ("port", loop)):
+        seen = []
+        (tmp_path / kind).mkdir()
+        monkeypatch.chdir(tmp_path / kind)
+        make_step, make_epoch_end = recorders(kind, seen)
+        monkeypatch.setattr(mod, "make_pso_train_step", make_step)
+        monkeypatch.setattr(mod, "make_pso_epoch_end", make_epoch_end)
+        if kind == "jax":
+            jloop.train(JConfig(**common))
+        else:
+            loop.train(Config(**{**common, "batch_size": common["batch_size"] * n_dev}),
+                       device=CPU)
+        exp = exp_dir(tmp_path / kind, "psosched")
+        runs[kind] = (seen, files(exp), json.loads((exp / "losses.json").read_text()))
+
+    (jseen, jfiles, jlosses), (tseen, tfiles, tlosses) = runs["jax"], runs["port"]
+    assert [c[0] for c in tseen] == [c[0] for c in jseen] == (["step"] * 3 + ["epoch_end"]) * 3
+    for i, (t, j) in enumerate(zip(tseen, jseen)):
+        if t[0] == "step":
+            assert t[1].dtype == j[1].dtype == np.float32 and np.array_equal(t[1], j[1]), i
+            np.testing.assert_allclose(t[2:4], j[2:4], rtol=1e-6, err_msg=f"call {i}: lr")
+            assert t[2:4] == (Config().lr_g, Config().lr_d), i
+        else:
+            for a, b in zip(t[1:3], j[1:3]):
+                assert a.dtype == b.dtype == np.float32 and a.shape == (20,), i
+                assert np.array_equal(a, b) and np.isinf(a[3:]).all(), i
+        assert t[-1] == j[-1], f"call {i}: files"
+    assert tfiles == jfiles and tlosses == jlosses
+    assert "content.*" in tfiles and "netG_2.*" in tfiles
+
+
+def test_pso_resume_loads_the_swarm_exactly(tmp_path, monkeypatch):
+    """A PSO run's content.pth holds its swarms, buffers and counters: a
+    fresh state loaded from it equals the run's final state bit for bit, and
+    a resumed run continues the epoch, the global step and the swarms'
+    iteration (one epoch-end update an epoch at limited_iter 3)."""
+    monkeypatch.chdir(tmp_path)
+    cfg = dict(TINY, kind_of_optim="pso", limited_iter=3, exp="psoresume")
+    s1 = loop.train(Config(**cfg, num_epoch=0), device=CPU)
+    exp = exp_dir(tmp_path, "psoresume")
+    raw = torch.load(exp / "content.pth", weights_only=False)
+    assert set(raw) == {"epoch", "global_step", "args", "netG_dict", "netD_dict", "optimizerG",
+                        "optimizerD", ckpt.EMA_KEY}
+    assert raw["optimizerG"]["buf_count"] == 0 and len(raw["optimizerG"]["loss_buf"]) == 21
+
+    gen, disc = loop.build_models(Config(**cfg), torch.Generator().manual_seed(9))
+    fresh = ttrain.create_pso_train_state(gen, disc, ttrain.AdaptivePSO(),
+                                          torch.Generator().manual_seed(9))
+    ckpt.load_content(exp, fresh)
+    for a, b in ((fresh, s1),):
+        assert (a.step, a.epoch, a.buf_count_G, a.buf_count_D) == (b.step, b.epoch, 0, 0) == \
+            (3, 1, 0, 0)
+        for name in ("pso_G", "pso_D"):
+            sa, sb = getattr(a, name), getattr(b, name)
+            for f in ("particles", "velocities", "pbest_pos", "gbest_pos"):
+                assert all(torch.equal(x, y) for x, y in zip(getattr(sa, f), getattr(sb, f)))
+            for f in ("pbest_scores", "gbest_score", "c1", "c2", "iteration"):
+                assert torch.equal(getattr(sa, f), getattr(sb, f)), (name, f)
+        assert all(torch.equal(a.ema_G[k], b.ema_G[k]) for k in b.ema_G)
+        assert torch.equal(a.loss_buf_G, b.loss_buf_G)
+    assert int(s1.pso_G.iteration) == 1
+
+    s2 = loop.train(Config(**cfg, num_epoch=1, resume=True), device=CPU)
+    assert (s2.step, s2.epoch, int(s2.pso_G.iteration), int(s2.pso_D.iteration)) == (6, 2, 2, 2)
+    assert [e["epoch"] for e in json.loads((exp / "losses.json").read_text())] == [1, 2]
+    with pytest.raises(ValueError, match="holds a PSO run"):
+        loop.train(Config(**{**cfg, "kind_of_optim": "adam"}, num_epoch=2, resume=True),
+                   device=CPU)
+
+
 # ---------------------------------------------------------------- resume
 def test_resume_continuity_with_real_steps(tmp_path, monkeypatch):
     """Train 2 epochs, resume to 4: epoch, step and Adam's step continue,
@@ -284,8 +403,7 @@ def test_discriminator_large_through_the_loop(tmp_path, monkeypatch):
     assert all(torch.isfinite(p).all() for p in net.parameters())
 
 
-@pytest.mark.parametrize("setting,item", [({"kind_of_optim": "pso"}, "item 9"),
-                                          ({"optimizer_sharding": "zero1"}, "item 7")])
+@pytest.mark.parametrize("setting,item", [({"optimizer_sharding": "zero1"}, "item 7")])
 def test_unported_settings_raise(tmp_path, monkeypatch, setting, item):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):

@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It drives the port's two sampler paths, its two
 train steps, its train loop through both train CLIs, its evaluation (FID
 through the sampler CLI, the Inception Score), the PSO optimizer, loop and
-hyperparameter search, and the content.ckpt bridge, with seeded weights,
+hyperparameter search, the content.ckpt bridge, every generator option
+and the legacy layer library, with seeded weights,
 and fails (non-zero exit) if any phase fails. Each phase prints its wall
 time.
 
@@ -195,8 +196,49 @@ HPO search `ddgan_torch.pso`) and a run between the packages
      ddgan_torch.compat.content`, equal bit for bit (the optimizers'
      learning rate apart), and `train_cli --resume` from content.ckpt
      alone; bytes and seconds each way;
- 38. print the result, a `{"kernels": [...]}` line (the forward entries and
-     one per backward role, with the launches of every driven path), and
+
+The generator options (`FAMILIES`: DDPM and one-adaGN resblocks, the
+output and input pyramids, the Fourier embedding, naive resampling, no
+time conditioning, inputs in [0, 1], no tanh), the buffer in the bridges,
+and the legacy layer library:
+
+ 38. down2x / up2x against their plain versions at the pyramids' (B, 3, H,
+     W) planes, H 256 down to 4, B 16 and 64, f32 and bf16, forward and
+     first- and second-order gradients; the pyramids' bf16 launch shapes
+     timed beside their bounds (phase 8's rows);
+ 39. each family at flagship width with N(0,1)/sqrt(fan_in) weights: one
+     f32 forward at batch 2 on the card (TF32 off) against the CPU plain
+     path (max-abs <= 2e-3, output std > 0.05) at t >= 1, and for the
+     Fourier family a batch whose row at t = 0 is not finite on either
+     device (it embeds log t, as the JAX package does); one bf16 forward at
+     batch 64 whose FIR launches equal `expected_g_fir` (the pyramids add
+     one up2x or down2x per transition; a DDPM Upsample / Downsample with
+     FIR and no conv one call), and no pair_conv3x3;
+ 40. `pyramid_sum` (NCSN++'s 256² option set) at the CelebA-HQ 256
+     recipe's widths: the T=2 sampler in bf16 at batch 16 (30 down2x, 30
+     up2x and 46 pair_conv3x3 launches a call; within 0.03 of the f32 run
+     on the card), one f32 D and G update with R1 on the card against the
+     CPU at batch 2 (as phase 22), three bf16 steps at batch 4 from the
+     recipe's init (launches by role: `expected_fir_calls` with the
+     pyramids' roles, the input pyramid's down2x without a backward; K2's
+     64 of the recipe), ms per step and samples/s beside the recipe's, each
+     timed here, peak memory, and the sampler beside the recipe's;
+ 41. `pyramid_sum` at flagship width through `python -m
+     ddgan_torch.cli.train_cli` (bf16, batch 64, synthetic 32², 4 steps an
+     epoch, R1 at step 0): epochs 0 and 1 in a subprocess, then --resume in
+     this process for epoch 2 (launches by role as the formula says), the
+     checks of phase 27, and the sampler CLI's 64 PNGs;
+ 42. a full-width `pyramid_cat_fourier_one` state (G holds the Fourier W as
+     a buffer) as an Adam run and as a PSO run (swarm 2) through
+     content.pth -> content.ckpt -> content.pth, equal bit for bit, W in
+     buffers_G and never in params_G, Adam, the EMA or a swarm; its netG
+     written in the JAX package's layout and loaded by `load_netg_ckpt`
+     with strict=True; bytes and seconds of each;
+ 43. every class of `nn/legacy.py` and both `ops/fused_act.py` functions
+     once on the card against the CPU, f32, TF32 off (<= 1e-5 of max|ref|);
+ 44. print the result, a `{"kernels": [...]}` line (the forward entries and
+     one per backward role, with the launches of every driven path, the
+     pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
      the `{"ok": true, ...}` line last.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
@@ -260,25 +302,72 @@ SOURCES = {
 }
 
 
-def expected_fir_calls(n_d: int, n_g: int, r1: bool, shared: bool) -> dict:
+# The generator option families (options over a recipe's config), and the
+# FIR roles each has (`expected_g_fir`'s keywords): a BigGAN or one-adaGN
+# resampling block runs the kernel twice (h and the skip), a DDPM
+# Upsample / Downsample with FIR and no conv once, and any other resampling
+# (naive, or FIR fused with a conv) not at all; the output pyramid adds an
+# up2x per transition and the input pyramid a down2x.
+FAMILIES = {
+    "pyramid_sum": dict(progressive="output_skip", progressive_input="input_skip",
+                        progressive_combine="sum"),
+    "pyramid_cat_fourier_one": dict(progressive="output_skip", progressive_input="input_skip",
+                                    progressive_combine="cat", embedding_type="fourier",
+                                    resblock_type="biggan_oneadagn", attn_resolutions=[]),
+    "residual_pyramid": dict(progressive="residual", progressive_input="residual"),
+    "ddpm_fir": dict(resblock_type="ddpm", fir=True, resamp_with_conv=False, not_use_tanh=True,
+                     skip_rescale=False, attn_resolutions=[]),
+    "ddpm_fir_conv": dict(resblock_type="ddpm", fir=True, resamp_with_conv=True),
+    "naive": dict(fir=False, progressive_input="none"),
+    "ddpm_naive": dict(resblock_type="ddpm", fir=False, resamp_with_conv=True),
+    "uncond_uncentered": dict(conditional=False, centered=False),
+}
+FAMILY_FIR = {
+    "pyramid_sum": dict(out_pyramid=True, in_pyramid=True),
+    "pyramid_cat_fourier_one": dict(out_pyramid=True, in_pyramid=True),
+    "residual_pyramid": {},
+    "ddpm_fir": dict(g_resample=1),
+    "ddpm_fir_conv": dict(g_resample=0),
+    "naive": dict(g_resample=0),
+    "ddpm_naive": dict(g_resample=0),
+    "uncond_uncentered": {},
+}
+
+
+def expected_g_fir(n_g: int, g_resample: int = 2, out_pyramid: bool = False,
+                   in_pyramid: bool = False) -> dict:
+    """FIR calls of one generator forward with `n_g` transitions each way:
+    `g_resample` per resampling block, and one per transition for each
+    pyramid (FAMILY_FIR)."""
+    return {"down2x": n_g * (g_resample + int(in_pyramid)),
+            "up2x": n_g * (g_resample + int(out_pyramid))}
+
+
+def expected_fir_calls(n_d: int, n_g: int, r1: bool, shared: bool, *, g_resample: int = 2,
+                       out_pyramid: bool = False, in_pyramid: bool = False) -> dict:
     """FIR calls of one train step by pattern and role, for a discriminator
-    with `n_d` downsampling blocks and a generator with `n_g` down and `n_g`
-    up resblocks. Each D forward runs down2x twice per downsampling block
-    (the block's output and its skip input); D runs on the fakes and on
-    x_t in the D update, once more on x_t for a recomputed (not shared) R1,
-    and on the fakes of the G update. Every D forward is differentiated
-    once more in its update, and an R1 step differentiates D(x_t) a second
-    time for the penalty, whose own backward is the second order. G runs
-    twice (the D update's fakes under no_grad, the G update) and is
-    differentiated once. The backward of down2x is an up2x call and the
-    backward of up2x a down2x call (`ddgan_torch/ops/fir2x.py`)."""
+    with `n_d` downsampling blocks and a generator with `n_g` transitions
+    each way (its FIR calls per forward as `expected_g_fir`). Each D forward
+    runs down2x twice per downsampling block (the block's output and its
+    skip input); D runs on the fakes and on x_t in the D update, once more
+    on x_t for a recomputed (not shared) R1, and on the fakes of the G
+    update. Every D forward is differentiated once more in its update, and
+    an R1 step differentiates D(x_t) a second time for the penalty, whose
+    own backward is the second order. G runs twice (the D update's fakes
+    under no_grad, the G update) and is differentiated once: each of its
+    calls on a tensor that needs a gradient gets one backward call, which
+    leaves out the input pyramid's down2x (it acts on x_{t+1}). The
+    backward of down2x is an up2x call and the backward of up2x a down2x
+    call (`ddgan_torch/ops/fir2x.py`)."""
     per_d = 2 * n_d
     d_fwd = 3 + int(r1 and not shared)
     d_bwd = d_fwd + int(r1)
+    g = expected_g_fir(n_g, g_resample, out_pyramid, in_pyramid)
+    g_down_grad = n_g * g_resample  # the input pyramid's down2x needs no gradient
     return {
-        "down2x": {"forward": d_fwd * per_d + 2 * 2 * n_g, "backward": 2 * n_g,
+        "down2x": {"forward": d_fwd * per_d + 2 * g["down2x"], "backward": g["up2x"],
                    "second_order": per_d if r1 else 0},
-        "up2x": {"forward": 2 * 2 * n_g, "backward": d_bwd * per_d + 2 * n_g,
+        "up2x": {"forward": 2 * g["up2x"], "backward": d_bwd * per_d + g_down_grad,
                  "second_order": 0},
     }
 
@@ -361,13 +450,15 @@ def device_ms(fn, inputs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def rotation(shape, dtype, out_elems: int, seed: int):
+def rotation(shape, dtype, out_elems: int, seed: int, max_copies: int | None = None):
     """Copies of one input, enough that inputs and outputs of a cycle
-    (> 128 MB) do not stay in the 50 MB L2 cache."""
+    (> 128 MB) do not stay in the 50 MB L2 cache; at most `max_copies`
+    (for a caller whose input was just written, and so is in L2)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(shape, generator=g, device="cuda").to(dtype)
     per = (x.numel() + out_elems) * x.element_size()
     n = max(2, math.ceil(128e6 / per))
+    n = min(n, max_copies) if max_copies else n
     return [x.clone() for _ in range(n)]
 
 
@@ -550,8 +641,10 @@ def check_fir_kernels(fir2x, shapes_by_kind, max_abs: dict) -> None:
                           f"(max|ref| {scale:.3g})")
 
 
-def time_fir_kernels(fir2x, shapes_by_kind, model: str) -> dict:
-    """Per-shape rows (kernel, plain, library, bound) for each FIR kernel."""
+def time_fir_kernels(fir2x, shapes_by_kind, model: str,
+                     dtypes=(torch.bfloat16, torch.float32), max_copies: int | None = None) -> dict:
+    """Per-shape rows (kernel, plain, library, bound) for each FIR kernel;
+    `max_copies` as `rotation`'s."""
     rows_by_kind = {}
     for name, shapes in shapes_by_kind.items():
         fn, ref = (fir2x.down2x, fir2x.down2x_ref) if name == "down2x" else (fir2x.up2x,
@@ -561,9 +654,10 @@ def time_fir_kernels(fir2x, shapes_by_kind, model: str) -> dict:
         rows = []
         for shp in shapes:
             # in a bf16 forward the h path runs bf16 and the skip path f32
-            for dtype in (torch.bfloat16, torch.float32):
+            for dtype in dtypes:
                 n_in = math.prod(shp)
-                bufs = rotation(shp, dtype, n_in * 4 if name == "up2x" else n_in // 4, seed=3)
+                bufs = rotation(shp, dtype, n_in * 4 if name == "up2x" else n_in // 4, seed=3,
+                                max_copies=max_copies)
                 iters = max(50, 2 * len(bufs))
                 with torch.no_grad():
                     k_ms = device_ms(lambda x: fn(x, k), bufs, iters)
@@ -1204,11 +1298,13 @@ def bare_step_ms(cfg, state) -> dict:
                       torch.Generator(device=dev).manual_seed(31), n=4)
 
 
-def expected_run_calls(steps, lazy_reg: int, n_d: int, n_g: int, shared: bool) -> dict:
+def expected_run_calls(steps, lazy_reg: int, n_d: int, n_g: int, shared: bool,
+                       **g_fir) -> dict:
     """`expected_fir_calls` summed over the global steps `steps`."""
     total: dict = {}
     for s in steps:
-        for name, roles in expected_fir_calls(n_d, n_g, s % lazy_reg == 0, shared).items():
+        for name, roles in expected_fir_calls(n_d, n_g, s % lazy_reg == 0, shared,
+                                              **g_fir).items():
             for role, n in roles.items():
                 total.setdefault(name, {}).setdefault(role, 0)
                 total[name][role] += n
@@ -1275,16 +1371,18 @@ def _calls(fir2x, pair_conv) -> dict:
             "pair_conv3x3": dict(pair_conv.CALLS)}
 
 
-def check_loop_run(cfg, exp: Path, steps, fir2x, pair_conv, k2_per_step: dict | None) -> dict:
+def check_loop_run(cfg, exp: Path, steps, fir2x, pair_conv, k2_per_step: dict | None,
+                   g_fir: dict | None = None) -> dict:
     """After a loop run over the global `steps`: the kernels' calls and
-    launches by role against the per-step counts of phases 23-25, every
-    netG_{e}.pth against NCSNpp (strict), losses.json's epochs, and
-    content.pth's counters. Returns the calls."""
+    launches by role against the per-step counts of phases 23-25 (`g_fir`:
+    the generator family's FIR roles, FAMILY_FIR), every netG_{e}.pth
+    against NCSNpp (strict), losses.json's epochs, and content.pth's
+    counters. Returns the calls."""
     torch.cuda.synchronize()
     calls = _calls(fir2x, pair_conv)
     n_d = 3 if str(cfg.disc_small).lower() == "yes" else 6
     want = expected_run_calls(steps, cfg.lazy_reg, n_d, len(cfg.ch_mult) - 1,
-                              shared=cfg.image_size >= 256)
+                              shared=cfg.image_size >= 256, **(g_fir or {}))
     check(calls["fir"] == want and fir2x.LAUNCHES == {k: sum(v.values()) for k, v in want.items()},
           f"loop: FIR calls {calls['fir']}, launches {fir2x.LAUNCHES}, expected {want}")
     k2 = {r: n * len(steps) for r, n in (k2_per_step or dict.fromkeys(pair_conv.CALLS, 0)).items()}
@@ -2384,6 +2482,24 @@ def hpo_search(fir2x, pair_conv) -> dict:
     return out
 
 
+def assert_content_equal(x, y, path: str = "") -> None:
+    """Two content.pth dicts equal key for key and bit for bit, the
+    optimizers' learning rate apart (the step sets it, and content.ckpt
+    does not hold it)."""
+    if path.endswith("/param_groups/0/lr"):
+        return
+    if isinstance(y, (list, tuple)):
+        y, x = dict(enumerate(y)), dict(enumerate(x))
+    if isinstance(y, dict):
+        check(isinstance(x, dict) and set(x) == set(y), f"round trip {path}: keys")
+        for k in y:
+            assert_content_equal(x[k], y[k], f"{path}/{k}")
+    elif isinstance(y, torch.Tensor):
+        check(x.dtype == y.dtype and torch.equal(x, y), f"round trip {path}")
+    else:
+        check(x == y, f"round trip {path}: {x} != {y}")
+
+
 def content_round_trip(kept: Path, cfg) -> dict:
     """Phase 27's flagship Adam run: content.pth to content.ckpt
     (`python -m ddgan_torch.compat.content --to ckpt`) and back (`--to
@@ -2403,22 +2519,7 @@ def content_round_trip(kept: Path, cfg) -> dict:
         (exp / "content.pth").unlink()
         to_pth = content.main([str(exp), "--to", "pth"])
         back = torch.load(exp / "content.pth", map_location="cpu", weights_only=False)
-
-        def equal(x, y, path=""):
-            if path.endswith("/param_groups/0/lr"):
-                return
-            if isinstance(y, (list, tuple)):
-                y, x = dict(enumerate(y)), dict(enumerate(x))
-            if isinstance(y, dict):
-                check(isinstance(x, dict) and set(x) == set(y), f"round trip {path}: keys")
-                for k in y:
-                    equal(x[k], y[k], f"{path}/{k}")
-            elif isinstance(y, torch.Tensor):
-                check(x.dtype == y.dtype and torch.equal(x, y), f"round trip {path}")
-            else:
-                check(x == y, f"round trip {path}: {x} != {y}")
-
-        equal(back, orig)
+        assert_content_equal(back, orig)
         (exp / "content.pth").unlink()
         _config_dir(tmp, cfg)
         cwd = os.getcwd()
@@ -2441,6 +2542,379 @@ def content_round_trip(kept: Path, cfg) -> dict:
           f"equal bit for bit; train_cli --resume from content.ckpt alone: epoch {m[1]}, global "
           f"step {orig['global_step']} -> {state.step}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the generator option families (phases 38-43)
+PYRAMID_SIDES = [256, 128, 64, 32, 16, 8, 4]  # the pyramids' planes: 256² down to 8², 32² to 4²
+# the pyramids' FIR inputs in a bf16 forward: the input pyramid's down2x
+# (C = 3) at 256..16 (CelebA-HQ 256, batch 16) and 32..8 (flagship, batch
+# 64), the output pyramid's up2x at 8..128 and 4..16
+PYRAMID_DOWN = ([(BATCH_256, 3, s, s) for s in (256, 128, 64, 32, 16)]
+                + [(BATCH, 3, s, s) for s in (32, 16, 8)])
+PYRAMID_UP = ([(BATCH_256, 3, s, s) for s in (8, 16, 32, 64, 128)]
+              + [(BATCH, 3, s, s) for s in (4, 8, 16)])
+FAMILY_LOOP_ITERS = 4  # steps an epoch of phase 41's train CLI run (R1 at step 0)
+FAMILY_PSO_SWARM = 2  # phase 42's PSO state: G's swarm at full width, 7 arrays of it
+
+
+def family_config(base, family: str):
+    return base.replace(**FAMILIES[family])
+
+
+def family_forwards(Config, dev, fir2x, pair_conv) -> dict:
+    """Phase 39: each option family at flagship width (N(0,1)/sqrt(fan_in)
+    weights, output std > 0.05): one f32 forward at batch 2 on the card
+    (TF32 off) against the port's CPU plain path (max-abs <= 2e-3), at t
+    >= 1; for the Fourier family also a batch whose row at t = 0 is not
+    finite on either device; then one bf16 forward at batch 64 whose FIR
+    launches equal `expected_g_fir` and which launches no pair_conv3x3."""
+    from ddgan_torch.models import NCSNpp
+    from ddgan_torch.utils import randomize_parameters_
+
+    out = {}
+    for i, family in enumerate(FAMILIES):
+        cfg = family_config(flagship_config(Config), family)
+        cfg32 = cfg.replace(compute_dtype="float32")
+        net_cpu = randomize_parameters_(NCSNpp.from_config(
+            cfg32, generator=torch.Generator().manual_seed(40 + i)), seed=40 + i).eval()
+        net_gpu = copy.deepcopy(net_cpu).to(dev)
+        rs = np.random.RandomState(50 + i)
+        shape = (2, cfg.num_channels, cfg.image_size, cfg.image_size)
+        x = rs.randn(*shape) if cfg.centered else rs.uniform(0, 1, shape)  # [0, 1] uncentered
+        x = torch.from_numpy(x.astype(np.float32))
+        z = torch.from_numpy(rs.randn(2, cfg.nz).astype(np.float32))
+        rows = {"t>=1": torch.tensor([1, T - 1])}
+        if cfg.embedding_type == "fourier":
+            rows["t=0"] = torch.tensor([0, 2])
+        res = {}
+        for label, t in rows.items():
+            with torch.no_grad():
+                want = net_cpu(x, t, z)
+                got = net_gpu(x.to(dev), t.to(dev), z.to(dev)).cpu()
+            if label == "t=0":  # log(0): the JAX package's behaviour, kept
+                check(not torch.isfinite(want[0]).any() and not torch.isfinite(got[0]).any()
+                      and torch.isfinite(want[1]).all() and torch.isfinite(got[1]).all()
+                      and (got[1] - want[1]).abs().max().item() <= 2e-3,
+                      f"{family}: the t = 0 row")
+                res["t0_row_finite"] = {"cpu": bool(torch.isfinite(want[0]).any()),
+                                        "gpu": bool(torch.isfinite(got[0]).any())}
+                continue
+            err, std = (got - want).abs().max().item(), want.std().item()
+            check(bool(torch.isfinite(got).all()) and std > 0.05 and err <= 2e-3,
+                  f"{family}: GPU vs CPU max-abs {err} (std {std})")
+            res.update(gpu_vs_cpu_max_abs=err, std=std)
+        net16 = NCSNpp.from_config(cfg)
+        net16.load_state_dict(net_cpu.state_dict())
+        net16 = net16.to(dev).eval()
+        g = torch.Generator(device=dev).manual_seed(60 + i)
+        xb = torch.randn((BATCH,) + shape[1:], generator=g, device=dev)
+        tb = torch.randint(1, T, (BATCH,), generator=g, device=dev)
+        zb = torch.randn((BATCH, cfg.nz), generator=g, device=dev)
+        _reset(fir2x, pair_conv)
+        with torch.no_grad():
+            y = net16(xb, tb, zb)
+        torch.cuda.synchronize()
+        launches = {**fir2x.LAUNCHES, **pair_conv.LAUNCHES}
+        want_l = {**expected_g_fir(len(cfg.ch_mult) - 1, **FAMILY_FIR[family]), "pair_conv3x3": 0}
+        check(launches == want_l and bool(torch.isfinite(y).all()),
+              f"{family} bf16 forward: launches {launches}, expected {want_l}")
+        res.update(parameters=sum(p.numel() for p in net_cpu.parameters()),
+                   buffers=[k for k, _ in net_cpu.named_buffers()], launches_bf16=launches)
+        out[family] = res
+        print(f"{family}: {res['parameters']} parameters, buffers {res['buffers']}; f32 GPU vs "
+              f"CPU max-abs {res['gpu_vs_cpu_max_abs']:.3g} (std {res['std']:.4f})"
+              + (f"; t = 0 row finite {res['t0_row_finite']}" if "t0_row_finite" in res else "")
+              + f"; bf16 batch {BATCH} launches {launches}")
+        del net_cpu, net_gpu, net16, y
+    return out
+
+
+def pyramid_sum_256(cfg2, d_sd, gi_sd, di_sd, net2_16, sampler256_ms: float,
+                    recipe_step: dict, dev, fir2x, pair_conv) -> dict:
+    """Phase 40: `pyramid_sum` at the CelebA-HQ 256 recipe's widths. The T=2
+    sampler in bf16 at batch 16 (K1 and K2 launches per call, within 0.03
+    of the f32 run on the card); one f32 D and G update with R1 on the card
+    against the CPU (batch 2, `compare_step_gpu_cpu`); bf16 steps at batch 4
+    from the recipe's init (launches by role per step: `expected_fir_calls`
+    with the pyramids' roles, and K2's 64 of the recipe); ms per step and
+    samples/s beside the recipe's, each timed here in turn, peak memory,
+    and the sampler's samples/s beside the recipe's."""
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.diffusion import PosteriorCoefficients, sample_from_model_with_noise
+    from ddgan_torch.models import NCSNpp
+    from ddgan_torch.utils import randomize_parameters_
+
+    fam = FAMILY_FIR["pyramid_sum"]
+    cfg = family_config(cfg2, "pyramid_sum")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    n_g = len(cfg.ch_mult) - 1
+    net32 = randomize_parameters_(NCSNpp.from_config(cfg32), seed=70).to(dev).eval()
+    net16 = NCSNpp.from_config(cfg)
+    net16.load_state_dict(net32.state_dict())
+    net16 = net16.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(71)
+    shape = (BATCH_256, cfg.num_channels, cfg.image_size, cfg.image_size)
+    x = torch.randn(shape, generator=g, device=dev)
+    zs = [torch.randn((BATCH_256, cfg.nz), generator=g, device=dev) for _ in range(T_256)]
+    noises = [torch.randn(shape, generator=g, device=dev) for _ in range(T_256)]
+    coeff = PosteriorCoefficients.create(T_256, cfg.beta_min, cfg.beta_max, device=dev)
+    with torch.no_grad():
+        ref32 = sample_from_model_with_noise(coeff, net32, T_256, x, zs, noises)
+    _reset(fir2x, pair_conv)
+    got16 = sample_from_model_with_noise(coeff, net16, T_256, x, zs, noises)
+    torch.cuda.synchronize()
+    sampler_launches = {**fir2x.LAUNCHES, **pair_conv.LAUNCHES}
+    per_fwd = expected_g_fir(n_g, **fam)
+    want = {k: T_256 * v for k, v in per_fwd.items()}
+    want["pair_conv3x3"] = T_256 * 23
+    err16 = (got16.float() - ref32).abs().max().item()
+    std = ref32.std().item()
+    print(f"pyramid_sum 256² sampler: bf16 vs f32 max-abs {err16:.4g} (f32 std {std:.4f}); "
+          f"launches per call {sampler_launches}")
+    check(bool(torch.isfinite(got16).all()) and std > 0.05, "pyramid_sum 256² sampler output")
+    check(sampler_launches == want, f"pyramid_sum 256² sampler launches {sampler_launches}, "
+          f"expected {want}")
+    check(err16 < 0.03, f"pyramid_sum 256² bf16 vs f32 max-abs {err16} >= 0.03")
+    del ref32, got16, net32
+
+    g_sd = randomize_parameters_(NCSNpp.from_config(cfg32), seed=72).state_dict()
+    step_cmp = compare_step_gpu_cpu(cfg32, g_sd, d_sd, batch=2, seed=73)
+
+    gfi_sd = NCSNpp.from_config(cfg32, generator=torch.Generator().manual_seed(11)).state_dict()
+    st, stp = build_trainer(cfg, gfi_sd, di_sd, dev, "bfloat16")
+    real = real_batch(cfg, TRAIN_BATCH_256, 14).to(dev)
+    rng = torch.Generator(device=dev).manual_seed(74)
+    paths, losses = {}, []
+    for i in range(3):
+        _reset(fir2x, pair_conv)
+        m = stp(st, real, rng, cfg.lr_g, cfg.lr_d)
+        torch.cuda.synchronize()
+        vals = [float(v) for v in m]
+        r1 = i % cfg.lazy_reg == 0
+        calls = _calls(fir2x, pair_conv)
+        want = expected_fir_calls(6, n_g, r1, shared=True, **fam)
+        check(all(np.isfinite(vals)) and r1 == (vals[4] > 0), f"pyramid_sum step {i}: {vals}")
+        check(calls["fir"] == want
+              and fir2x.LAUNCHES == {k: sum(v.values()) for k, v in want.items()},
+              f"pyramid_sum step {i}: FIR calls {calls['fir']}, expected {want}")
+        check(calls["pair_conv3x3"] == {"forward": 46, "dx": 18, "dx_library": 5}
+              and pair_conv.LAUNCHES["pair_conv3x3"] == 64,
+              f"pyramid_sum step {i}: pair_conv3x3 {calls['pair_conv3x3']} {pair_conv.LAUNCHES}")
+        if i < 2:
+            paths["pyramid_sum_celeba256_train_" + ("r1" if r1 else "plain")] = calls
+        losses.append((vals[0], vals[3]))
+    print(f"pyramid_sum 256² bf16 steps (errD, errG): {losses}; launches "
+          f"{json.dumps(paths)}")
+    recipe_st, recipe_stp = build_trainer(cfg2.replace(dropout=0.0), gi_sd, di_sd, dev,
+                                          "bfloat16")
+    times = {}
+    for label, (s_, f_) in (("recipe", (recipe_st, recipe_stp)), ("pyramid_sum", (st, stp))):
+        times[label] = time_steps(s_, f_, real, torch.Generator(device=dev).manual_seed(75), n=4)
+        t_ = times[label]
+        for k in ("r1_step", "plain_step"):
+            t_[k.replace("step", "samples_per_s")] = TRAIN_BATCH_256 / t_[k] * 1e3
+        print(f"256² bf16 train step, {label}: R1 {t_['r1_step']:.3f} ms, other "
+              f"{t_['plain_step']:.3f} ms ({t_['plain_samples_per_s']:.2f} samples/s at batch "
+              f"{TRAIN_BATCH_256}); peak memory {t_['peak_memory_gb']:.2f} GB")
+    print(f"(phase 25's recipe step: R1 {recipe_step['r1_step']:.3f} ms, other "
+          f"{recipe_step['plain_step']:.3f} ms)")
+    del st, stp, recipe_st, recipe_stp
+    sampler = {}
+    for label, (c_, n_) in (("recipe", (cfg2, net2_16)), ("pyramid_sum", (cfg, net16))):
+        call = test_cli.make_sampler(c_, n_, BATCH_256, dev, torch.Generator(device=dev).manual_seed(76))
+        sampler[label] = sampler_ms(call, warmup=2, iters=5)
+        print(f"256² bf16 sampler, {label}: {sampler[label]:.3f} ms per T=2 call = "
+              f"{BATCH_256 / sampler[label] * 1e3:.2f} samples/s (phase 16's recipe: "
+              f"{BATCH_256 / sampler256_ms * 1e3:.2f})")
+    return {"sampler_launches": sampler_launches, "bf16_vs_f32_max_abs": err16,
+            "gpu_vs_cpu_step": step_cmp, "train_paths": paths, "losses": losses,
+            "step_ms": times, "sampler_ms": sampler}
+
+
+def family_loop_through_train_cli(cfg, family: str, fir2x, pair_conv,
+                                  sample_launches: dict) -> dict:
+    """Phase 41: `cfg` (a family at flagship width, bf16, batch 64,
+    synthetic 32²) through `python -m ddgan_torch.cli.train_cli
+    --use_config_file True` in a subprocess for epochs 0 and 1 (R1 at step
+    0), then --resume in this process for epoch 2 (launches counted against
+    `expected_fir_calls` with the family's roles), the checks of
+    `check_loop_run`, and the sampler CLI's 64 PNGs from the last netG."""
+    from ddgan_torch.cli import train_cli
+
+    argv = ["--use_config_file", "True", "--exp", cfg.exp]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / cfg.dataset / cfg.exp
+        _config_dir(tmp, cfg)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "ddgan_torch.cli.train_cli", *argv,
+                              "--num_epoch", "1"], cwd=tmp, env=env, stdin=subprocess.DEVNULL,
+                             capture_output=True, text=True, timeout=300)
+        sub_s = time.perf_counter() - t0
+        check(res.returncode == 0, f"train CLI subprocess: {res.returncode}\n"
+              f"{(res.stdout + res.stderr)[-4000:]}")
+        cwd = os.getcwd()
+        os.chdir(tmp)
+        try:
+            _reset(fir2x, pair_conv)
+            with Tee() as tee:
+                state = train_cli.main(argv + ["--num_epoch", "2", "--resume"])
+            m = re.search(r"=> Loaded checkpoint \(epoch (\d+)\)", tee.text())
+            check(m is not None and int(m[1]) == 2, "the resumed run did not load epoch 2")
+            run = cfg.replace(num_epoch=2)
+            calls = check_loop_run(run, exp, range(2 * cfg.limited_iter, 3 * cfg.limited_iter),
+                                   fir2x, pair_conv, None, FAMILY_FIR[family])
+            check(state.step == 3 * cfg.limited_iter, f"resumed run ended at step {state.step}")
+            n_png = sample_from_loop(run, tmp, fir2x, pair_conv, sample_launches)
+        finally:
+            os.chdir(cwd)
+    epochs = epoch_times(res.stdout + tee.text())
+    out = {"family": family, "subprocess_s": sub_s, "steps": 3 * cfg.limited_iter,
+           "launches": calls, "pngs": n_png, "epochs": epochs}
+    print(f"{family} through train_cli: epochs 0-1 in a subprocess ({sub_s:.1f} s), epoch 2 "
+          f"resumed; epoch lines {epochs}; FIR calls of the resumed epoch {calls['fir']}; "
+          f"{n_png} PNGs")
+    return out
+
+
+def buffer_bridges(Config, dev) -> dict:
+    """Phase 42: a full-width `pyramid_cat_fourier_one` state, whose G holds
+    the Fourier projection W as a buffer, through content.pth ->
+    content.ckpt -> content.pth (`ddgan_torch.compat.content`), as an Adam
+    run (moments set by one step on seeded gradients) and as a PSO run
+    (swarm FAMILY_PSO_SWARM, seeded loss buffers): equal bit for bit (the
+    optimizers' learning rate apart), W included, and the content.ckpt's
+    params_G without W, its buffers_G with it; and its netG in the JAX
+    package's layout (`write_msgpack` of {"params", "buffers"}), which
+    `load_netg_ckpt` loads with strict=True. Bytes and seconds of each."""
+    from ddgan_torch.compat import (content, flax_trees_from_port, load_netg_ckpt,
+                                    read_msgpack, write_msgpack)
+    from ddgan_torch.models import NCSNpp
+    from ddgan_torch.train import AdaptivePSO, create_pso_train_state
+    from ddgan_torch.train import checkpoint as ckpt
+
+    cfg = family_config(flagship_config(Config), "pyramid_cat_fourier_one").replace(
+        dataset="synthetic", compute_dtype="float32")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("adam", "pso"):
+            c = cfg.replace(kind_of_optim=kind, exp=f"fourier_{kind}")
+            exp = Path(tmp) / kind
+            state = content.empty_state(c, dev)
+            g = torch.Generator(device=dev).manual_seed(80)
+            if kind == "adam":
+                for opt, net in ((state.opt_G, state.gen), (state.opt_D, state.disc)):
+                    for p_ in net.parameters():
+                        p_.grad = torch.randn(p_.shape, generator=g, device=dev)
+                    opt.step(1e-4)
+                    opt.zero_grad()
+            else:
+                state = create_pso_train_state(state.gen, state.disc,
+                                               AdaptivePSO(swarm_size=FAMILY_PSO_SWARM), g)
+                for name in ("loss_buf_G", "loss_buf_D"):
+                    setattr(state, name, torch.rand(getattr(state, name).shape, generator=g,
+                                                    device=dev))
+                state.buf_count_G, state.buf_count_D = 3, 5
+            state.step, state.epoch = 7, 2
+            names = [k for k, _ in state.gen.named_parameters()]
+            check("all_modules.0.W" in state.gen.state_dict() and "all_modules.0.W" not in names
+                  and list(state.ema_G) == names, f"{kind}: W is not a buffer alone")
+            ckpt.save_content(exp, state, c.to_dict())
+            orig = torch.load(exp / "content.pth", map_location="cpu", weights_only=False)
+            to_ckpt = content.main([str(exp), "--to", "ckpt"])
+            raw = read_msgpack((exp / "content.ckpt").read_bytes())
+            check(set(raw["buffers_G"]) == {"all_modules_0"}
+                  and "W" not in raw["params_G"].get("all_modules_0", {}),
+                  f"{kind}: content.ckpt's buffers_G {list(raw['buffers_G'])}")
+            (exp / "content.pth").unlink()
+            to_pth = content.main([str(exp), "--to", "pth"])
+            back = torch.load(exp / "content.pth", map_location="cpu", weights_only=False)
+            assert_content_equal(back, orig)
+            out[kind] = {"to_ckpt": to_ckpt, "to_pth": to_pth}
+            print(f"{kind}: content.pth {to_ckpt['read_bytes']} B -> content.ckpt "
+                  f"{to_ckpt['write_bytes']} B in {to_ckpt['read_s']:.3f} + "
+                  f"{to_ckpt['write_s']:.3f} s, back in {to_pth['read_s']:.3f} + "
+                  f"{to_pth['write_s']:.3f} s; equal bit for bit, W included")
+            if kind == "adam":
+                params, buffers = flax_trees_from_port(state.gen, state.gen.state_dict())
+                path = Path(tmp) / "netG_2.ckpt"
+                t0 = time.perf_counter()
+                path.write_bytes(write_msgpack({"params": params, "buffers": buffers}))
+                write_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                net = NCSNpp.from_config(c)
+                net.load_state_dict(load_netg_ckpt(str(path)), strict=True)
+                read_s = time.perf_counter() - t0
+                for k, v in state.gen.state_dict().items():
+                    check(torch.equal(net.state_dict()[k], v.cpu()), f"netG_2.ckpt: {k}")
+                out["netg_ckpt"] = {"bytes": path.stat().st_size, "write_s": write_s,
+                                    "read_s": read_s}
+                print(f"netG_2.ckpt (params and buffers): {path.stat().st_size} B, written in "
+                      f"{write_s:.3f} s, loaded with strict=True in {read_s:.3f} s")
+            del state, orig, back, raw
+            torch.cuda.empty_cache()
+    return out
+
+
+def legacy_on_card(dev) -> dict:
+    """Phase 43: each class of `nn/legacy.py` and both `ops/fused_act.py`
+    functions once on the card against the CPU, f32 with TF32 off,
+    N(0,1)/sqrt(fan_in) weights: max-abs <= 1e-5 of max|ref|."""
+    from ddgan_torch.nn import legacy
+    from ddgan_torch.ops import fused_act
+    from ddgan_torch.utils import randomize_parameters_
+
+    g = torch.Generator().manual_seed(90)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g)
+
+    x64, x128 = rand(4, 64, 32, 32), rand(4, 128, 16, 16)
+    cases = {
+        "CRPBlock": (legacy.CRPBlock(64, 2), (x64,)),
+        "CRPBlock avg": (legacy.CRPBlock(64, 2, maxpool=False), (x64,)),
+        "RCUBlock": (legacy.RCUBlock(64, 2, 2), (x64,)),
+        "MSFBlock": (legacy.MSFBlock([64, 128], 64), ([x64, x128], (32, 32))),
+        "RefineBlock": (legacy.RefineBlock([64, 128], 64), ([x64, x128], (32, 32))),
+        "ConvMeanPool": (legacy.ConvMeanPool(64, 128), (x64,)),
+        "MeanPoolConv": (legacy.MeanPoolConv(64, 128), (x64,)),
+        "UpsampleConv": (legacy.UpsampleConv(128, 64), (x128,)),
+        "ResidualBlock": (legacy.ResidualBlock(64, 128, resample="down"), (x64,)),
+        "AttnBlock": (legacy.AttnBlock(128), (x128,)),
+        "UpsampleDDPM": (legacy.UpsampleDDPM(128, with_conv=True), (x128,)),
+        "DownsampleDDPM": (legacy.DownsampleDDPM(64, with_conv=True), (x64,)),
+        "ResnetBlockDDPM": (legacy.ResnetBlockDDPM(F.silu, 64, 128, temb_dim=32),
+                            (x64, rand(4, 32))),
+    }
+    errs = {}
+
+    def to(v, device):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        return [to(u, device) for u in v] if isinstance(v, list) else v
+
+    for name, (module, args) in cases.items():
+        cpu = randomize_parameters_(module, seed=91).eval()
+        gpu = copy.deepcopy(cpu).to(dev)
+        with torch.no_grad():
+            want, got = cpu(*args), gpu(*to(list(args), dev)).cpu()
+        errs[name] = (got - want).abs().max().item() / want.abs().max().item()
+    b = rand(64)
+    for name, fn in (("fused_leaky_relu", lambda x_, b_: fused_act.fused_leaky_relu(x_, b_)),
+                     ("fused_bias_act linear",
+                      lambda x_, b_: fused_act.fused_bias_act(x_, b_, act="linear"))):
+        want, got = fn(x64, b), fn(x64.to(dev), b.to(dev)).cpu()
+        errs[name] = (got - want).abs().max().item() / want.abs().max().item()
+    errs["get_act lrelu"] = (legacy.get_act("lrelu")(x64.to(dev)).cpu()
+                             - legacy.get_act("lrelu")(x64)).abs().max().item()
+    worst = max(errs, key=errs.get)
+    print("legacy and fused_act on the card against the CPU, max-abs over max|ref|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+    check(errs[worst] <= 1e-5, f"{worst}: {errs[worst]} of max|ref|")
+    return errs
 
 
 def main() -> int:
@@ -3016,10 +3490,50 @@ def main() -> int:
     pso_runs["content_round_trip"] = content_round_trip(keep, loop_cfg)
     shutil.rmtree(keep)
 
-    phase("38 result")
+    phase("38 FIR kernels at the pyramids' 3-channel shapes: forward and gradients against "
+          "their plain versions, and their times")
+    pyr = [(b, 3, s_, s_) for b in (BATCH_256, BATCH) for s_ in PYRAMID_SIDES]
+    check_fir_kernels(fir2x, {"down2x": pyr, "up2x": pyr}, max_abs)
+    check_fir_grads(fir2x, [(k, s_) for k in ("down2x", "up2x") for s_ in pyr], max_abs)
+    # a pyramid plane is a few MB at most, just written by the op before: L2-warm
+    pyramid_rows = time_fir_kernels(fir2x, {"down2x": PYRAMID_DOWN, "up2x": PYRAMID_UP},
+                                    "pyramid", dtypes=(torch.bfloat16,), max_copies=4)
+
+    phase("39 every generator option family at flagship width: f32 GPU vs CPU, bf16 launches")
+    families = family_forwards(Config, dev, fir2x, pair_conv)
+
+    phase("40 pyramid_sum at the CelebA-HQ 256 recipe: sampler, f32 step GPU vs CPU, bf16 "
+          "steps by role, times beside the recipe's")
+    pyramid256 = pyramid_sum_256(cfg2, d_sd, gi_sd, di_sd, net2_16, results256["bf16"],
+                                 train_times["celeba256"], dev, fir2x, pair_conv)
+    train_paths.update(pyramid256["train_paths"])
+    torch.cuda.empty_cache()
+
+    phase("41 pyramid_sum at flagship width through train_cli: two epochs, --resume, sampled")
+    fam_loop_cfg = family_config(cfg, "pyramid_sum").replace(
+        dataset="synthetic", exp="pyramid_sum_loop", limited_iter=FAMILY_LOOP_ITERS,
+        num_epoch=1, save_ckpt_every=1)
+    fam_sample = {k: T * v for k, v in expected_g_fir(len(cfg.ch_mult) - 1,
+                                                      **FAMILY_FIR["pyramid_sum"]).items()}
+    families["pyramid_sum_train_cli"] = family_loop_through_train_cli(
+        fam_loop_cfg, "pyramid_sum", fir2x, pair_conv, {**fam_sample, "pair_conv3x3": 0})
+    train_paths["pyramid_sum_train_cli_resumed"] = families["pyramid_sum_train_cli"]["launches"]
+    torch.cuda.empty_cache()
+
+    phase("42 the bridges with a buffer: a Fourier generator's Adam and PSO states through "
+          "content.ckpt and back, and its netG_*.ckpt")
+    families["bridges"] = buffer_bridges(Config, dev)
+
+    phase("43 the legacy layer library and fused_act on the card against the CPU")
+    families["legacy"] = legacy_on_card(dev)
+
+    phase("44 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
-                  "celeba256_inception_score": evals["inception_score"]["launches"]}
+                  "celeba256_inception_score": evals["inception_score"]["launches"],
+                  "pyramid_sum_celeba256_sampler": pyramid256["sampler_launches"],
+                  **{f"{f}_flagship_forward_bf16": r["launches_bf16"]
+                     for f, r in families.items() if "launches_bf16" in r}}
     train_forward = {path: {**{k: v["forward"] for k, v in c["fir"].items()},
                             "pair_conv3x3": c["pair_conv3x3"]["forward"]}
                      for path, c in train_paths.items()}
@@ -3049,6 +3563,7 @@ def main() -> int:
             **total,
             "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
             "shapes": rows,
+            **({"pyramid_shapes": pyramid_rows[name]} if name in pyramid_rows else {}),
         })
     # the backward roles: times per CelebA-HQ 256 bf16 R1 step (the other
     # steps in "per_step"); launches over the four driven train steps
@@ -3089,6 +3604,7 @@ def main() -> int:
                   "roles": role_times, "profile": train_profile},
         "eval": evals,
         "pso": pso_runs,
+        "families": {**families, "pyramid_sum_celeba256": pyramid256},
         "build_s": build_s,
         "phase_s": PHASE_S,
     }))

@@ -22,8 +22,10 @@ swarms and the loss ring buffers in place of the optax states).
     written with `write_msgpack`. `ddgan_tpu.train.checkpoint.load_content`
     loads it.
 
-A ZeRO-1 state raises (ROADMAP.md Queue 1 item 7), and so does a non-empty
-`buffers_G`, the Fourier embedding's projection (item 4).
+`buffers_G`, the Fourier embedding's projection when the generator has
+one, goes into the generator's state_dict with its parameters and comes
+back out of it; Adam, the EMA and the swarms cover the parameters only, as
+in the JAX package. A ZeRO-1 state raises (ROADMAP.md Queue 1 item 7).
 
     python -m ddgan_torch.compat.content saved_info/dd_gan/<dataset>/<exp> --to pth
     python -m ddgan_torch.compat.content saved_info/dd_gan/<dataset>/<exp> --to ckpt
@@ -53,16 +55,12 @@ from ..train.pso_optim import PSOState
 from ..train.pso_step import BUF, PSOTrainState
 from ..train.state import TrainState
 from .msgpack import read_msgpack, write_msgpack
-from .weights import flax_tree_from_port, state_dict_from_flax
+from .weights import flax_tree_from_port, flax_trees_from_port, state_dict_from_flax
 
 _SWARM_PER_PARAM = {"particles": 1, "velocities": 1, "pbest_pos": 1, "gbest_pos": 0}
 
 
 def _refuse_unported(raw: dict) -> None:
-    if raw.get("buffers_G"):
-        raise NotImplementedError(
-            "content.ckpt holds generator buffers (the Fourier embedding's projection): "
-            "that generator option is not ported to ddgan_torch yet (ROADMAP.md Queue 1 item 4).")
     for name in ("opt_G", "opt_D"):
         if isinstance(raw.get(name), dict) and isinstance(raw[name].get("mu"), np.ndarray):
             raise NotImplementedError(
@@ -114,7 +112,7 @@ def load_flax_content(raw: dict, state: TrainState | PSOTrainState):
         raise ValueError(f"content.ckpt holds {'an Adam' if pso else 'a PSO'} run; this run's "
                          f"kind_of_optim is {'pso' if pso else 'adam'}")
     device = next(state.gen.parameters()).device
-    state.gen.load_state_dict(state_dict_from_flax(raw["params_G"]))
+    state.gen.load_state_dict(state_dict_from_flax(raw["params_G"], raw.get("buffers_G")))
     state.disc.load_state_dict(state_dict_from_flax(raw["params_D"]))
     if raw.get("ema_G") is not None and state.ema_G is not None:
         with torch.no_grad():
@@ -181,10 +179,11 @@ def _swarm_to_flax(swarm: PSOState, module: torch.nn.Module) -> dict:
 def flax_content(state: TrainState | PSOTrainState) -> dict:
     """The port's `state` as the JAX package's train-state state dict."""
     gen, disc = state.gen, state.disc
+    params_G, buffers_G = flax_trees_from_port(gen, gen.state_dict())
     out = {
-        "params_G": flax_tree_from_port(gen, dict(gen.named_parameters())),
+        "params_G": params_G,
         "params_D": flax_tree_from_port(disc, dict(disc.named_parameters())),
-        "buffers_G": {},
+        "buffers_G": buffers_G,
     }
     ema = None if state.ema_G is None else flax_tree_from_port(gen, state.ema_G)
     if isinstance(state, PSOTrainState):

@@ -14,6 +14,11 @@ name their wrapped layers (`Conv3x3`, `Conv1x1`, `ConvLayer` → "conv";
 `Dense` → "linear"; `_TembProj` → "dense"; a plain `Linear` has no
 wrapper). Both take arrays with leading axes (`lead`), such as a swarm's
 (swarm, *param_shape) positions, and map each member alike.
+
+The generator's one buffer, the Fourier embedding's projection
+(`all_modules.0.W`), is flax's 'buffers' collection: `flax_trees_from_port`
+sends a tensor there by the class of the module that holds it (NIN's
+parameter is also called W), and `flax_tree_from_port` refuses one.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from ..nn.blocks import FirConv2d, _TembProj
+from ..nn.blocks import FirConv2d, GaussianFourierProjection, _TembProj
 from ..nn.layers import Conv2d, Dense
 from .msgpack import read_msgpack
 
@@ -31,6 +36,8 @@ _WRAPPERS = ("conv", "linear", "dense")
 # the wrapper level the JAX package's class puts around each port class's
 # parameters (subclasses first)
 _WRAPPER_OF = ((_TembProj, "dense"), (Dense, "linear"), (Conv2d, "conv"))
+# the port classes whose tensors the JAX package keeps in 'buffers'
+_BUFFER_OWNERS = (GaussianFourierProjection,)
 
 
 def strip_module_prefix(state_dict: Mapping[str, Any]) -> dict[str, Any]:
@@ -144,25 +151,36 @@ def flax_path(module: torch.nn.Module, key: str) -> tuple[str, ...]:
     return tuple(path) + (leaf,)
 
 
-def flax_tree_from_port(module: torch.nn.Module, tensors: dict[str, torch.Tensor],
-                        lead: int = 0) -> dict:
-    """`tensors` (keyed like `module.named_parameters()`, each with `lead`
-    leading axes) as the JAX package's nested parameter tree of numpy
+def flax_trees_from_port(module: torch.nn.Module, tensors: dict[str, torch.Tensor],
+                         lead: int = 0) -> tuple[dict, dict]:
+    """`tensors` (keyed like `module.state_dict()`, each with `lead` leading
+    axes) as the JAX package's nested (params, buffers) trees of numpy
     arrays: the inverse of `state_dict_from_flax`."""
-    tree: dict = {}
+    trees: tuple[dict, dict] = ({}, {})
     for key, t in tensors.items():
         path = flax_path(module, key)
+        owner = module.get_submodule(key.rpartition(".")[0])
         arr = t.detach().cpu().numpy()
         nd = arr.ndim - lead
         if path[-1] in ("kernel", "weight") and nd == 4:
             arr = _swap(arr, lead, (2, 3, 1, 0))  # OIHW → HWIO
         elif path[-1] == "kernel":
             arr = _swap(arr, lead, (1, 0))
-        node = tree
+        node = trees[isinstance(owner, _BUFFER_OWNERS)]
         for seg in path[:-1]:
             node = node.setdefault(seg, {})
         node[path[-1]] = np.ascontiguousarray(arr)
-    return tree
+    return trees
+
+
+def flax_tree_from_port(module: torch.nn.Module, tensors: dict[str, torch.Tensor],
+                        lead: int = 0) -> dict:
+    """`tensors` (keyed like `module.named_parameters()`) as the JAX
+    package's nested parameter tree of numpy arrays."""
+    params, buffers = flax_trees_from_port(module, tensors, lead)
+    if buffers:
+        raise ValueError(f"buffers are not parameters: {sorted(_flatten(buffers))}")
+    return params
 
 
 def load_netg_pth(path: str) -> dict[str, torch.Tensor]:

@@ -5,4 +5,11 @@ from .discriminator import (  # noqa: F401
     minibatch_stddev,
 )
 from .ncsnpp import NCSNpp, resolve_compute_dtype  # noqa: F401
-from .registry import get_model, register_model  # noqa: F401
+from .registry import (  # noqa: F401
+    create_model,
+    get_ddpm_params,
+    get_model,
+    get_model_fn,
+    get_sigmas,
+    register_model,
+)

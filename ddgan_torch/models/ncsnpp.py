@@ -6,15 +6,25 @@ one flat `all_modules` list built in the reference's order, and the latent
 map is the Sequential `z_transform`, so the state_dict keys are the
 reference's (`all_modules.{i}.…`, `z_transform.{2j+1}.…`).
 
-This port covers the block options that the flagship CIFAR-10 recipe and
-the CelebA-HQ 256 recipe share: BigGAN resblocks, no output pyramid, a
-residual input pyramid, positional time embedding, FIR resampling, time
-conditioning and the tanh head, at any width, ch_mult, depth and image
-size. Any other option raises NotImplementedError naming the ROADMAP item
-that ports it. In bf16, the 3x3 convs of the 128² and 256² levels with 64
-output channels run the gated conv kernel (`ops/pair_conv.py`). In train
-mode the dropout masks come from the generator given to
-`set_dropout_generator` (the train step hands it its own).
+Every option of the JAX package: resblock_type {ddpm, biggan,
+biggan_oneadagn}; progressive {none, output_skip, residual};
+progressive_input {none, input_skip, residual}; progressive_combine {sum,
+cat}; embedding_type {positional, fourier}; FIR or naive resampling, with
+or without conv; time conditioning on or off; inputs in [-1, 1] or [0, 1]
+(`centered`); the tanh head on or off. The parameter-free pyramid
+resamplers of output_skip / input_skip sit outside `all_modules`, as in
+the JAX package. Its width-s2d closure and resblock remat are TPU
+measures and are not ported: `from_config` accepts their keys and ignores
+them.
+
+With embedding_type fourier the time embedding is taken of log(t), as in
+the JAX package and the reference, so the row of a batch at t = 0 is not
+finite.
+
+In bf16, the 3x3 convs of the 128² and 256² levels with 64 output
+channels run the gated conv kernel (`ops/pair_conv.py`). In train mode the
+dropout masks come from the generator given to `set_dropout_generator`
+(the train step hands it its own).
 """
 
 from __future__ import annotations
@@ -29,19 +39,16 @@ from ..nn import blocks
 from ..nn.layers import Conv3x3, Dense, Linear, PixelNorm, default_init, get_timestep_embedding
 from .registry import register_model
 
-_OTHER_OPTIONS = "ROADMAP.md Queue 1 item 4 (the other generator options)"
+RESBLOCK_TYPES = ("ddpm", "biggan", "biggan_oneadagn")
+PROGRESSIVE = ("none", "output_skip", "residual")
+PROGRESSIVE_INPUT = ("none", "input_skip", "residual")
+EMBEDDING_TYPES = ("fourier", "positional")
+COMBINE_METHODS = ("sum", "cat")
 
-# option -> the value this port supports
-_FLAGSHIP_OPTIONS = {
-    "resblock_type": "biggan",
-    "progressive": "none",
-    "progressive_input": "residual",
-    "embedding_type": "positional",
-    "fir": True,
-    "conditional": True,
-    "not_use_tanh": False,
-    "centered": True,
-}
+
+def _check(name: str, value: str, allowed: tuple) -> None:
+    if value not in allowed:
+        raise ValueError(f"NCSNpp {name}={value!r} not recognized; expected one of {allowed}")
 
 
 def resolve_compute_dtype(name: Any) -> torch.dtype | None:
@@ -65,54 +72,83 @@ class NCSNpp(nn.Module):
         num_res_blocks: int = 2,
         attn_resolutions: Sequence[int] = (16,),
         dropout: float = 0.1,
+        resamp_with_conv: bool = True,
         image_size: int = 32,
+        conditional: bool = True,
+        fir: bool = True,
         fir_kernel: Sequence[int] = (1, 3, 3, 1),
         skip_rescale: bool = True,
+        resblock_type: str = "biggan",
+        progressive: str = "none",
+        progressive_input: str = "residual",
+        progressive_combine: str = "sum",
+        embedding_type: str = "positional",
+        fourier_scale: float = 16.0,
+        not_use_tanh: bool = False,
         num_channels: int = 3,
         nz: int = 100,
         z_emb_dim: int = 256,
         n_mlp: int = 3,
+        centered: bool = True,
         dtype: torch.dtype | None = None,
         generator: torch.Generator | None = None,
-        **options: Any,
     ):
         super().__init__()
-        for key, value in options.items():
-            if key not in _FLAGSHIP_OPTIONS:
-                raise TypeError(f"unknown NCSNpp option {key!r}")
-            if value != _FLAGSHIP_OPTIONS[key]:
-                raise NotImplementedError(
-                    f"NCSNpp {key}={value!r} is not ported yet (the port has "
-                    f"{key}={_FLAGSHIP_OPTIONS[key]!r}); see {_OTHER_OPTIONS}"
-                )
+        _check("resblock_type", resblock_type, RESBLOCK_TYPES)
+        _check("progressive", progressive, PROGRESSIVE)
+        _check("progressive_input", progressive_input, PROGRESSIVE_INPUT)
+        _check("progressive_combine", progressive_combine, COMBINE_METHODS)
+        _check("embedding_type", embedding_type, EMBEDDING_TYPES)
         self.nf, self.ch_mult = nf, tuple(ch_mult)
         self.num_res_blocks = num_res_blocks
         self.attn_resolutions = tuple(attn_resolutions)
         self.skip_rescale, self.dtype = skip_rescale, dtype
+        self.resblock_type, self.progressive = resblock_type, progressive
+        self.progressive_input, self.embedding_type = progressive_input, embedding_type
+        self.conditional, self.centered, self.not_use_tanh = conditional, centered, not_use_tanh
         num_resolutions = len(self.ch_mult)
         all_resolutions = [image_size // (2**i) for i in range(num_resolutions)]
+        channels = num_channels
+        fir_kernel = tuple(fir_kernel)
 
-        temb_dim = nf * 4
-        modules: list[nn.Module] = [
-            Linear(nf, temb_dim, default_init()),
-            Linear(temb_dim, temb_dim, default_init()),
-        ]
+        # time embedding (reference :96-117)
+        modules: list[nn.Module] = []
+        embed_dim = nf
+        if embedding_type == "fourier":
+            modules.append(blocks.GaussianFourierProjection(nf, fourier_scale))
+            embed_dim = 2 * nf
+        temb_dim = None
+        if conditional:
+            temb_dim = nf * 4
+            modules += [Linear(embed_dim, temb_dim, default_init()),
+                        Linear(temb_dim, temb_dim, default_init())]
 
         def resnet_block(in_ch, out_ch=None, **kw):
-            return blocks.ResnetBlockBigGANppAdagn(
-                in_ch, out_ch, temb_dim=temb_dim, zemb_dim=z_emb_dim, dropout=dropout,
-                fir=True, fir_kernel=fir_kernel, skip_rescale=skip_rescale,
-                init_scale=0.0, dtype=dtype, **kw,
-            )
+            common = dict(temb_dim=temb_dim, zemb_dim=z_emb_dim, dropout=dropout,
+                          skip_rescale=skip_rescale, init_scale=0.0, dtype=dtype)
+            if resblock_type == "ddpm":
+                return blocks.ResnetBlockDDPMppAdagn(in_ch, out_ch, **common, **kw)
+            cls = (blocks.ResnetBlockBigGANppAdagn if resblock_type == "biggan"
+                   else blocks.ResnetBlockBigGANppAdagnOne)
+            return cls(in_ch, out_ch, fir=fir, fir_kernel=fir_kernel, **common, **kw)
 
         def attn_block(ch):
             return blocks.AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=0.0, dtype=dtype)
 
-        # Downsampling (reference :174-210)
-        modules.append(Conv3x3(num_channels, nf, dtype=dtype))
+        def resample(cls, in_ch, out_ch, with_conv):
+            return cls(in_ch, out_ch, with_conv=with_conv, fir=fir, fir_kernel=fir_kernel,
+                       dtype=dtype)
+
+        if progressive == "output_skip":
+            self.pyramid_upsample = blocks.Upsample(channels, fir=fir, fir_kernel=fir_kernel)
+        if progressive_input == "input_skip":
+            self.pyramid_downsample = blocks.Downsample(channels, fir=fir, fir_kernel=fir_kernel)
+
+        # Downsampling (:174-210)
+        modules.append(Conv3x3(channels, nf, dtype=dtype))
         hs_c = [nf]
         in_ch = nf
-        input_pyramid_ch = num_channels
+        input_pyramid_ch = channels
         for i_level in range(num_resolutions):
             for _ in range(num_res_blocks):
                 out_ch = nf * self.ch_mult[i_level]
@@ -122,12 +158,17 @@ class NCSNpp(nn.Module):
                     modules.append(attn_block(in_ch))
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
-                modules.append(resnet_block(in_ch, down=True))
-                modules.append(
-                    blocks.Downsample(input_pyramid_ch, in_ch, with_conv=True, fir=True,
-                                      fir_kernel=fir_kernel, dtype=dtype)
-                )
-                input_pyramid_ch = in_ch
+                if resblock_type == "ddpm":
+                    modules.append(resample(blocks.Downsample, in_ch, in_ch, resamp_with_conv))
+                else:
+                    modules.append(resnet_block(in_ch, down=True))
+                if progressive_input == "input_skip":
+                    modules.append(blocks.Combine(channels, in_ch, progressive_combine, dtype))
+                    if progressive_combine == "cat":
+                        in_ch *= 2
+                elif progressive_input == "residual":
+                    modules.append(resample(blocks.Downsample, input_pyramid_ch, in_ch, True))
+                    input_pyramid_ch = in_ch
                 hs_c.append(in_ch)
 
         # middle (:212-215)
@@ -135,6 +176,7 @@ class NCSNpp(nn.Module):
         modules += [resnet_block(in_ch), attn_block(in_ch), resnet_block(in_ch)]
 
         # Upsampling (:217-261)
+        pyramid_ch = 0
         for i_level in reversed(range(num_resolutions)):
             for _ in range(num_res_blocks + 1):
                 out_ch = nf * self.ch_mult[i_level]
@@ -142,12 +184,29 @@ class NCSNpp(nn.Module):
                 in_ch = out_ch
             if all_resolutions[i_level] in self.attn_resolutions:
                 modules.append(attn_block(in_ch))
+            if progressive != "none":
+                top = i_level == num_resolutions - 1
+                if progressive == "output_skip":
+                    modules.append(blocks.GroupNorm(min(in_ch // 4, 32), in_ch, dtype=dtype))
+                    modules.append(Conv3x3(in_ch, channels, init_scale=0.0, dtype=dtype))
+                    pyramid_ch = channels
+                elif top:  # residual
+                    modules.append(blocks.GroupNorm(min(in_ch // 4, 32), in_ch, dtype=dtype))
+                    modules.append(Conv3x3(in_ch, in_ch, dtype=dtype))
+                    pyramid_ch = in_ch
+                else:
+                    modules.append(resample(blocks.Upsample, pyramid_ch, in_ch, True))
+                    pyramid_ch = in_ch
             if i_level != 0:
-                modules.append(resnet_block(in_ch, up=True))
+                if resblock_type == "ddpm":
+                    modules.append(resample(blocks.Upsample, in_ch, in_ch, resamp_with_conv))
+                else:
+                    modules.append(resnet_block(in_ch, up=True))
         assert not hs_c
 
-        modules.append(blocks.HeadGroupNorm(min(in_ch // 4, 32), in_ch, dtype=dtype))
-        modules.append(Conv3x3(in_ch, num_channels, init_scale=0.0, dtype=dtype))
+        if progressive != "output_skip":
+            modules.append(blocks.HeadGroupNorm(min(in_ch // 4, 32), in_ch, dtype=dtype))
+            modules.append(Conv3x3(in_ch, channels, init_scale=0.0, dtype=dtype))
         self.all_modules = nn.ModuleList(modules)
 
         # latent mapping (:271-277): PixelNorm, then 1 + n_mlp x (dense, act)
@@ -160,32 +219,34 @@ class NCSNpp(nn.Module):
 
     @classmethod
     def from_config(cls, config: Any, generator: torch.Generator | None = None) -> "NCSNpp":
-        options = {
-            "resblock_type": str(config.resblock_type).lower(),
-            "progressive": str(config.progressive).lower(),
-            "progressive_input": str(config.progressive_input).lower(),
-            "embedding_type": str(config.embedding_type).lower(),
-            "fir": bool(config.fir),
-            "conditional": bool(config.conditional),
-            "not_use_tanh": bool(config.not_use_tanh),
-            "centered": bool(getattr(config, "centered", True)),
-        }
+        """The generator of a config; its use_remat, remat_policy and s2d_conv
+        keys (TPU measures of the JAX package) are ignored."""
         return cls(
             nf=config.num_channels_dae,
             ch_mult=tuple(config.ch_mult),
             num_res_blocks=config.num_res_blocks,
             attn_resolutions=tuple(config.attn_resolutions),
             dropout=config.dropout,
+            resamp_with_conv=bool(config.resamp_with_conv),
             image_size=config.image_size,
+            conditional=bool(config.conditional),
+            fir=bool(config.fir),
             fir_kernel=tuple(config.fir_kernel),
             skip_rescale=config.skip_rescale,
+            resblock_type=str(config.resblock_type).lower(),
+            progressive=str(config.progressive).lower(),
+            progressive_input=str(config.progressive_input).lower(),
+            progressive_combine=str(config.progressive_combine).lower(),
+            embedding_type=str(config.embedding_type).lower(),
+            fourier_scale=float(config.fourier_scale),
+            not_use_tanh=bool(config.not_use_tanh),
             num_channels=config.num_channels,
             nz=config.nz,
             z_emb_dim=config.z_emb_dim,
             n_mlp=config.n_mlp,
+            centered=bool(getattr(config, "centered", True)),
             dtype=resolve_compute_dtype(getattr(config, "compute_dtype", "float32")),
             generator=generator,
-            **options,
         )
 
     def init_weights(self, generator: torch.Generator | None = None) -> None:
@@ -201,14 +262,32 @@ class NCSNpp(nn.Module):
             if isinstance(m, blocks.Dropout):
                 m.generator = generator
 
+    def _block(self, m: nn.Module, h: torch.Tensor, temb, zemb) -> torch.Tensor:
+        if isinstance(m, (blocks.Upsample, blocks.Downsample)):  # ddpm resampling
+            return m(h)
+        return m(h, temb, zemb)
+
+    def _skip_sum(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return blocks._rescale(a + b) if self.skip_rescale else a + b
+
     def forward(self, x: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         modules = self.all_modules
         zemb = self.z_transform(z)
-        temb = get_timestep_embedding(time_cond, self.nf)
-        temb = modules[0](temb)
-        temb = modules[1](F.silu(temb))
-        m_idx = 2
+        m_idx = 0
+        if self.embedding_type == "fourier":
+            temb = modules[m_idx](torch.log(time_cond.to(torch.float32)))
+            m_idx += 1
+        else:
+            temb = get_timestep_embedding(time_cond, self.nf)
+        if self.conditional:
+            temb = modules[m_idx](temb)
+            temb = modules[m_idx + 1](F.silu(temb))
+            m_idx += 2
+        else:
+            temb = None
 
+        if not self.centered:
+            x = 2 * x - 1.0  # input in [0, 1]
         if self.dtype is not None:
             x = x.to(self.dtype)
         input_pyramid = x
@@ -225,15 +304,17 @@ class NCSNpp(nn.Module):
                     m_idx += 1
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = modules[m_idx](hs[-1], temb, zemb)
+                h = self._block(modules[m_idx], hs[-1], temb, zemb)
                 m_idx += 1
-                input_pyramid = modules[m_idx](input_pyramid)
-                m_idx += 1
-                if self.skip_rescale:
-                    input_pyramid = blocks._rescale(input_pyramid + h)
-                else:
-                    input_pyramid = input_pyramid + h
-                h = input_pyramid
+                if self.progressive_input == "input_skip":
+                    input_pyramid = self.pyramid_downsample(input_pyramid)
+                    h = modules[m_idx](input_pyramid, h)
+                    m_idx += 1
+                elif self.progressive_input == "residual":
+                    input_pyramid = modules[m_idx](input_pyramid)
+                    m_idx += 1
+                    input_pyramid = self._skip_sum(input_pyramid, h)
+                    h = input_pyramid
                 hs.append(h)
 
         h = hs[-1]
@@ -242,6 +323,7 @@ class NCSNpp(nn.Module):
         h = modules[m_idx + 2](h, temb, zemb)
         m_idx += 3
 
+        pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
                 h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb, zemb)
@@ -249,12 +331,28 @@ class NCSNpp(nn.Module):
             if h.shape[3] in self.attn_resolutions:
                 h = modules[m_idx](h)
                 m_idx += 1
+            if self.progressive != "none":
+                if i_level == num_resolutions - 1 or self.progressive == "output_skip":
+                    pyramid_h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
+                    m_idx += 2
+                    if pyramid is None:
+                        pyramid = pyramid_h
+                    else:  # output_skip below the top level
+                        pyramid = self.pyramid_upsample(pyramid) + pyramid_h
+                else:  # residual below the top level
+                    pyramid = self._skip_sum(modules[m_idx](pyramid), h)
+                    m_idx += 1
+                    h = pyramid
             if i_level != 0:
-                h = modules[m_idx](h, temb, zemb)
+                h = self._block(modules[m_idx], h, temb, zemb)
                 m_idx += 1
         assert not hs
 
-        h = F.silu(modules[m_idx](h))
-        h = modules[m_idx + 1](h)
-        assert m_idx + 2 == len(modules)
-        return torch.tanh(h.to(torch.float32))
+        if self.progressive == "output_skip":
+            h = pyramid
+        else:
+            h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
+            m_idx += 2
+        assert m_idx == len(modules)
+        h = h.to(torch.float32)
+        return h if self.not_use_tanh else torch.tanh(h)

@@ -103,13 +103,13 @@ class HeadGroupNorm(nn.Module):
 
 
 class GroupNorm(nn.Module):
-    """flax.linen.GroupNorm(epsilon=1e-6): statistics and normalization in
+    """flax.linen.GroupNorm(epsilon=eps): statistics and normalization in
     float32 (variance E[x²] − E[x]², clamped at 0), output in the compute
     dtype."""
 
-    def __init__(self, num_groups: int, num_channels: int, dtype=None):
+    def __init__(self, num_groups: int, num_channels: int, dtype=None, eps: float = 1e-6):
         super().__init__()
-        self.num_groups, self.dtype = num_groups, dtype
+        self.num_groups, self.dtype, self.eps = num_groups, dtype, eps
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
@@ -120,12 +120,55 @@ class GroupNorm(nn.Module):
         xg = xf.reshape(b, self.num_groups, -1)
         mean = xg.mean(-1)
         var = (xg.square().mean(-1) - mean.square()).clamp_min(0.0)
-        mul = torch.rsqrt(var + 1e-6).repeat_interleave(cpg, dim=1) * self.weight.float()
+        mul = torch.rsqrt(var + self.eps).repeat_interleave(cpg, dim=1) * self.weight.float()
         mean = mean.repeat_interleave(cpg, dim=1)
         y = (xf - mean[:, :, None, None]) * mul[:, :, None, None]
         y = y + self.bias.float()[None, :, None, None]
         dt = self.dtype if self.dtype is not None else torch.promote_types(x.dtype, torch.float32)
         return y.to(dt)
+
+
+class GaussianFourierProjection(nn.Module):
+    """Gaussian Fourier embedding of the noise level. (layerspp.py:65-74)
+
+    W, a fixed random projection N(0, 1) * scale, is a persistent buffer:
+    the JAX package keeps it in the 'buffers' collection, out of the
+    parameters that Adam, the EMA and the swarms cover; the state_dict
+    still carries it as `W`, the reference's key.
+    """
+
+    def __init__(self, embedding_size: int = 256, scale: float = 1.0):
+        super().__init__()
+        self.scale = float(scale)
+        self.register_buffer("W", torch.empty(embedding_size))
+        self.init_weights()
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator | None = None) -> None:
+        self.W.normal_(generator=generator).mul_(self.scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_proj = x[:, None] * self.W[None, :] * 2 * math.pi
+        return torch.cat([torch.sin(x_proj), torch.cos(x_proj)], dim=-1)
+
+
+class Combine(nn.Module):
+    """Combine the input pyramid with the stream: Conv1x1 of the pyramid,
+    then cat or sum. (layerspp.py:77-92)"""
+
+    def __init__(self, in_ch: int, out_ch: int, method: str = "cat", dtype=None):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"Method {method} not recognized.")
+        self.method = method
+        self.Conv_0 = Conv1x1(in_ch, out_ch, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        h = self.Conv_0(x)
+        if self.method == "cat":
+            dt = torch.promote_types(h.dtype, y.dtype)
+            return torch.cat([h.to(dt), y.to(dt)], dim=1)
+        return h + y
 
 
 class AttnBlockpp(nn.Module):
@@ -303,10 +346,10 @@ class ResnetBlockBigGANppAdagn(nn.Module):
     def _resample(self, v: torch.Tensor) -> torch.Tensor:
         if self.up:
             if self.fir:
-                return resample.upsample_2d(v.contiguous(), self.fir_kernel, factor=2)
+                return resample.upsample_2d(v, self.fir_kernel, factor=2)
             return resample.naive_upsample_2d(v, factor=2)
         if self.fir:
-            return resample.downsample_2d(v.contiguous(), self.fir_kernel, factor=2)
+            return resample.downsample_2d(v, self.fir_kernel, factor=2)
         return resample.naive_downsample_2d(v, factor=2)
 
     def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None,
@@ -318,11 +361,72 @@ class ResnetBlockBigGANppAdagn(nn.Module):
         h = self.Conv_0(h)
         if temb is not None:
             h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
+        h = F.silu(self._norm_1(h, zemb))
+        h = self.Dropout_0(h)
+        h = self.Conv_1(h)
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        if not self.skip_rescale:
+            return x + h
+        return _rescale(x + h)
+
+    def _norm_1(self, h: torch.Tensor, zemb: torch.Tensor | None) -> torch.Tensor:
+        return self.GroupNorm_1(h, zemb)
+
+
+class ResnetBlockBigGANppAdagnOne(ResnetBlockBigGANppAdagn):
+    """The BigGAN ResBlock with the adaptive norm on the first GroupNorm
+    only; GroupNorm_1 is a plain affine GroupNorm. (layerspp.py:313-379)"""
+
+    def __init__(self, in_ch: int, out_ch: int | None = None, zemb_dim: int = 256,
+                 dtype=None, **kw):
+        super().__init__(in_ch, out_ch, zemb_dim=zemb_dim, dtype=dtype, **kw)
+        out_ch = out_ch or in_ch
+        self.GroupNorm_1 = GroupNorm(_num_groups(out_ch), out_ch, dtype=dtype)
+
+    def _norm_1(self, h: torch.Tensor, zemb: torch.Tensor | None) -> torch.Tensor:
+        return self.GroupNorm_1(h)
+
+
+class ResnetBlockDDPMppAdagn(nn.Module):
+    """DDPM-style ResBlock with adaptive GroupNorms. (layerspp.py:199-244)
+
+    The shortcut is NIN_0 when the width changes, or the 3x3 Conv_2 under
+    `conv_shortcut`.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int | None = None, temb_dim: int | None = None,
+                 zemb_dim: int = 256, conv_shortcut: bool = False, dropout: float = 0.1,
+                 skip_rescale: bool = False, init_scale: float = 0.0, dtype=None):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.skip_rescale = skip_rescale
+        self.GroupNorm_0 = AdaptiveGroupNorm(_num_groups(in_ch), in_ch, zemb_dim, dtype=dtype)
+        self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
+        if temb_dim is not None:
+            self.Dense_0 = _TembProj(temb_dim, out_ch, dtype=dtype)
+        self.GroupNorm_1 = AdaptiveGroupNorm(_num_groups(out_ch), out_ch, zemb_dim, dtype=dtype)
+        self.Dropout_0 = Dropout(dropout)
+        self.Conv_1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = Conv3x3(in_ch, out_ch, dtype=dtype)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor | None = None,
+                zemb: torch.Tensor | None = None) -> torch.Tensor:
+        h = F.silu(self.GroupNorm_0(x, zemb))
+        h = self.Conv_0(h)
+        if temb is not None:
+            h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
         h = F.silu(self.GroupNorm_1(h, zemb))
         h = self.Dropout_0(h)
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):
+            x = self.NIN_0(x)
         if not self.skip_rescale:
             return x + h
         return _rescale(x + h)

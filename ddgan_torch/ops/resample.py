@@ -3,7 +3,8 @@
 Counterpart of `ddgan_tpu/ops/resample.py` (reference semantics:
 score_sde/models/up_or_down_sampling.py). `upsample_2d` / `downsample_2d`
 send the 2x, 4-tap case with even H and W to the differentiable
-`fir2x.up2x` / `fir2x.down2x`, which launch the hand-written kernel on a
+`fir2x.up2x` / `fir2x.down2x` (made contiguous: a NIN output, for one, is
+channels-last in memory), which launch the hand-written kernel on a
 CUDA tensor and run their plain version on a CPU tensor, so the CPU runs
 the same gradient route as the GPU; every other case takes the plain
 path, which computes the same function.
@@ -69,7 +70,8 @@ def upsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -> 
     if _fir2x_ok(x, k1d, factor):
         # separable: outer(k,k)/sum * gain*4 == outer(k', k') with
         # k' = k/sum(k) * sqrt(gain)*2
-        return fir2x.up2x(x, tuple((k1d / k1d.sum() * (gain**0.5) * factor).tolist()))
+        return fir2x.up2x(x.contiguous(),
+                          tuple((k1d / k1d.sum() * (gain**0.5) * factor).tolist()))
     k = setup_kernel(k) * (gain * (factor**2))
     p = k.shape[0] - factor
     return upfirdn2d_ref(x, k, up=factor, pad=((p + 1) // 2 + factor - 1, p // 2))
@@ -82,7 +84,7 @@ def downsample_2d(x: torch.Tensor, k=None, factor: int = 2, gain: float = 1.0) -
         k = [1] * factor
     k1d = np.asarray(k, np.float64)
     if _fir2x_ok(x, k1d, factor):
-        return fir2x.down2x(x, tuple((k1d / k1d.sum() * (gain**0.5)).tolist()))
+        return fir2x.down2x(x.contiguous(), tuple((k1d / k1d.sum() * (gain**0.5)).tolist()))
     k = setup_kernel(k) * gain
     p = k.shape[0] - factor
     return upfirdn2d_ref(x, k, down=factor, pad=((p + 1) // 2, p // 2))

@@ -223,3 +223,33 @@ class Flat:
         """The N(0, 1) draws of `AdaptivePSO.init` over the vector under `key`."""
         return self.to_port(jax.random.normal(jax.random.split(key, 1)[0],
                                               (swarm,) + vec.shape), module)
+
+
+def chip_smoke():
+    """`chip_smoke.py` as a module (it runs nothing on import): the option
+    families and the launch-count formulas that its GPU phases assert."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jax_variables(gen, cfg, net: torch.nn.Module, batch: int = 1):
+    """The JAX generator's variables ({"params"}, and {"buffers"} when it
+    has any) holding the port generator's weights, W included."""
+    k = jax.random.PRNGKey(0)
+    shapes = jax.eval_shape(lambda: gen.init(
+        {"params": k, "dropout": k},
+        jnp.zeros((batch, cfg.image_size, cfg.image_size, cfg.num_channels)),
+        jnp.zeros((batch,), jnp.int32), jnp.zeros((batch, cfg.nz))))
+    template = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+    sd = {k_: v.detach().cpu() for k_, v in net.state_dict().items()}
+    params, buffers = convert_torch_state_dict(sd, template["params"], template.get("buffers"))
+    out = {"params": jax.tree.map(jnp.asarray, params)}
+    if buffers:
+        out["buffers"] = jax.tree.map(jnp.asarray, buffers)
+    return out

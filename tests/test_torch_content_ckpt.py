@@ -56,7 +56,7 @@ from ddgan_torch.utils import randomize_parameters_
 
 from _torch_port import (  # noqa: F401  (one_torch_thread: an autouse fixture)
     Flat,
-    flax_params_from_port,
+    jax_variables,
     nchw,
     np_step_draws,
     one_torch_thread,
@@ -102,22 +102,43 @@ def _assert_tree_equal(got, want, path="") -> None:
         assert g.dtype == w.dtype and g.shape == w.shape and np.array_equal(g, w), path
 
 
-@pytest.fixture(scope="module")
-def world():
-    cfg = Config(**SMALL)
+def _world(cfg):
+    """The small models with shared random weights, and the batch: (cfg,
+    jgen, jdisc, params_G, params_D, real, buffers_G)."""
     jgen, jdisc = JNCSNpp.from_config(cfg), JSmall(nc=2, ngf=cfg.ngf, t_emb_dim=cfg.t_emb_dim)
     x0, t0 = jnp.zeros((2, 8, 8, 1)), jnp.zeros((2,), jnp.int32)
-    g_shapes = jax.eval_shape(lambda: jgen.init({"params": jax.random.PRNGKey(0),
-                                                 "dropout": jax.random.PRNGKey(0)},
-                                                x0, t0, jnp.zeros((2, cfg.nz))))
     gen = randomize_parameters_(loop.build_models(cfg)[0], seed=0)
     # copies: a jax array may share the memory of the torch tensor it came from
-    pG = jax.tree.map(lambda a: jnp.array(np.array(a)), flax_params_from_port(
-        gen, jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), g_shapes)))
+    variables = jax.tree.map(lambda a: jnp.array(np.array(a)),
+                             jax_variables(jgen, cfg, gen, batch=2))
     d_shapes = jax.eval_shape(jdisc.init, jax.random.PRNGKey(0), x0, t0, x0)["params"]
     pD = jax.tree.map(jnp.asarray, random_flax_params(d_shapes, seed=1))
     real = np.random.RandomState(2).uniform(-1, 1, (B, 8, 8, 1)).astype(np.float32)
-    return cfg, jgen, jdisc, pG, pD, real
+    return cfg, jgen, jdisc, variables["params"], pD, real, variables.get("buffers", {})
+
+
+@pytest.fixture(scope="module")
+def world():
+    return _world(Config(**SMALL))[:6]
+
+
+@pytest.fixture(scope="module")
+def fourier_world():
+    """`world` with the Fourier embedding (a non-empty buffers_G) at T = 4,
+    with its buffers_G last."""
+    return _world(Config(**SMALL).replace(embedding_type="fourier", num_timesteps=4))
+
+
+def _draws(cfg, seed):
+    return np_step_draws(cfg, B, seed)
+
+
+def _fourier_draws(cfg, seed):
+    """A step's draws with t >= 1: the Fourier embedding takes log(t)."""
+    dr = _draws(cfg, seed)
+    for i in (0, 5):
+        dr[i] = (1 + dr[i] % (cfg.num_timesteps - 1)).astype(np.int32)
+    return dr
 
 
 def _coeffs(cfg):
@@ -130,11 +151,22 @@ def _coeffs(cfg):
 # ---------------------------------------------------------------- Adam
 @pytest.fixture(scope="module")
 def jax_fns(world):
+    return _jax_fns(world)
+
+
+@pytest.fixture(scope="module")
+def fourier_fns(fourier_world):
+    return _jax_fns(fourier_world)
+
+
+def _jax_fns(world):
     """The JAX package's functions of the small models, each compiled once:
     the D update's loss gradient and the G update's (without R1, as
     `ddgan_tpu/train/step.py` composes them), and from them the PSO step's
-    forward losses (`ddgan_tpu/train/pso_step.py:113-130`)."""
-    cfg, jgen, jdisc, _, _, _ = world
+    forward losses (`ddgan_tpu/train/pso_step.py:113-130`); G's buffers, if
+    any, ride along as the JAX steps pass them."""
+    cfg, jgen, jdisc = world[:3]
+    buffers = {"buffers": world[6]} if len(world) > 6 and world[6] else {}
     coeff = JCoeff.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max)
     pos = JPos.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max)
 
@@ -144,8 +176,8 @@ def jax_fns(world):
     @jax.jit
     def d_grads(pG, pD, real, t, nq, nn, z, npost):
         x_t, x_tp1 = jq_pairs(coeff, real, t, nq, nn)
-        x_pos = jposterior(pos, jgen.apply({"params": pG}, x_tp1, t, z, train=True), x_tp1, t,
-                           npost)
+        x_pos = jposterior(pos, jgen.apply({"params": pG, **buffers}, x_tp1, t, z, train=True),
+                           x_tp1, t, npost)
 
         def d_loss(p):
             real_ = jax.nn.softplus(-apply_D(p, x_t, t, x_tp1)).mean()
@@ -159,7 +191,7 @@ def jax_fns(world):
         _, x_tp1_g = jq_pairs(coeff, real, t2, nq2, nn2)
 
         def g_loss(p):
-            x0 = jgen.apply({"params": p}, x_tp1_g, t2, z2, train=True)
+            x0 = jgen.apply({"params": p, **buffers}, x_tp1_g, t2, z2, train=True)
             return jax.nn.softplus(-apply_D(pD, jposterior(pos, x0, x_tp1_g, t2, npost2), t2,
                                             x_tp1_g)).mean()
 
@@ -218,12 +250,24 @@ def _assert_adam_close(state: TrainState, jst, what):
 
 @pytest.mark.parametrize("opt", list(ADAM))
 def test_adam_run_crosses_both_ways(world, jax_fns, opt, tmp_path):
-    cfg0, jgen, jdisc, pG, pD, real = world
+    _adam_run_crosses(world, jax_fns, opt, tmp_path, _draws)
+
+
+def test_fourier_adam_run_crosses_both_ways(fourier_world, fourier_fns, tmp_path):
+    """The same with the Fourier embedding: buffers_G crosses into the
+    generator's state_dict and back, and Adam and the EMA hold params_G's
+    leaves only."""
+    _adam_run_crosses(fourier_world, fourier_fns, "clip_and_wd", tmp_path, _fourier_draws)
+
+
+def _adam_run_crosses(world, jax_fns, opt, tmp_path, draw):
+    cfg0, jgen, jdisc, pG, pD, real = world[:6]
+    bG = world[6] if len(world) > 6 else {}
     cfg = cfg0.replace(**ADAM[opt])
     jstep, tx_g, tx_d = _jax_adam_step(cfg, jax_fns, ADAM[opt])
-    jst = JTrainState(params_G=pG, params_D=pD, buffers_G={}, opt_G=tx_g.init(pG),
+    jst = JTrainState(params_G=pG, params_D=pD, buffers_G=bG, opt_G=tx_g.init(pG),
                       opt_D=tx_d.init(pD), ema_G=pG, step=jnp.int32(0), epoch=jnp.int32(0))
-    draws = [np_step_draws(cfg, B, 20 + i) for i in range(3)]
+    draws = [draw(cfg, 20 + i) for i in range(3)]
 
     def jax_next(st, i):
         st, losses = jstep(st, jnp.asarray(real), *[jnp.asarray(a) for a in draws[i]])
@@ -239,6 +283,7 @@ def test_adam_run_crosses_both_ways(world, jax_fns, opt, tmp_path):
     _assert_tree_equal(content.flax_content(state),
                        serialization.to_state_dict(_np_tree(jst)))
     assert isinstance(state, TrainState) and state.opt_G.grad_clip_norm == cfg.grad_clip_norm
+    _assert_params_only(state, pG)
     port_step = make_train_step(*_coeffs(cfg), num_timesteps=cfg.num_timesteps, nz=cfg.nz,
                                 r1_gamma=cfg.r1_gamma, lazy_reg=cfg.lazy_reg, ema_decay=EMA,
                                 use_ema=True)
@@ -259,7 +304,7 @@ def test_adam_run_crosses_both_ways(world, jax_fns, opt, tmp_path):
 
 
 # ---------------------------------------------------------------- PSO
-def _jax_pso_state(cfg, pG, pD):
+def _jax_pso_state(cfg, pG, pD, bG=None):
     """A JAX PSOTrainState one step short of firing both swarms: the swarms
     as `AdaptivePSO.init` draws them (over one vector per network), TRIGGER
     losses in each ring buffer."""
@@ -273,7 +318,7 @@ def _jax_pso_state(cfg, pG, pD):
                                ("particles", "velocities", "pbest_pos", "gbest_pos")})
 
     return JPSOTrainState(
-        params_G=pG, params_D=pD, buffers_G={},
+        params_G=pG, params_D=pD, buffers_G=bG or {},
         pso_G=swarm(pG, jax.random.PRNGKey(5)), pso_D=swarm(pD, jax.random.PRNGKey(6)),
         ema_G=jax.tree.map(lambda p: np.asarray(p) * np.float32(0.5), pG),
         loss_buf_G=jnp.asarray(np.r_[rs.uniform(0.5, 1.5, TRIGGER), 0].astype(np.float32)),
@@ -333,9 +378,33 @@ def _assert_swarm_close(state: PSOTrainState, jst, what):
 
 
 def test_pso_run_crosses_both_ways(world, jax_fns, tmp_path):
-    cfg0, jgen, jdisc, pG, pD, real = world
+    _pso_run_crosses(world, jax_fns, tmp_path, _draws)
+
+
+def test_fourier_pso_run_crosses_both_ways(fourier_world, fourier_fns, tmp_path):
+    """The same with the Fourier embedding: the swarms hold params_G's
+    leaves, never W."""
+    _pso_run_crosses(fourier_world, fourier_fns, tmp_path, _fourier_draws)
+
+
+def _assert_params_only(state, pG):
+    """Adam's, the EMA's and the swarms' tensors are G's parameters, leaf
+    for leaf JAX's params_G, and never its buffer."""
+    names = [k for k, _ in state.gen.named_parameters()]
+    assert set(names) == set(state_dict_from_flax(_np_tree(pG)))
+    assert not any(k.endswith(".W") and "NIN" not in k for k in names)
+    assert list(state.ema_G) == names
+    if isinstance(state, PSOTrainState):
+        assert len(state.pso_G.particles) == len(names)
+    else:
+        assert len(state.opt_G.params) == len(names)
+
+
+def _pso_run_crosses(world, jax_fns, tmp_path, draw):
+    cfg0, jgen, jdisc, pG, pD, real = world[:6]
+    bG = world[6] if len(world) > 6 else {}
     cfg = cfg0.replace(kind_of_optim="pso")
-    jst, jpso = _jax_pso_state(cfg, pG, pD)
+    jst, jpso = _jax_pso_state(cfg, pG, pD, bG)
     jckpt.save_content(tmp_path / "jax", jst, cfg.to_dict())
 
     state = content.empty_state(cfg, "cpu")
@@ -343,12 +412,13 @@ def test_pso_run_crosses_both_ways(world, jax_fns, tmp_path):
     content.load_content_ckpt(tmp_path / "jax", state)
     _assert_tree_equal(content.flax_content(state), serialization.to_state_dict(_np_tree(jst)))
     assert (state.buf_count_G, state.step, state.epoch) == (TRIGGER, TRIGGER, 1)
+    _assert_params_only(state, pG)
 
     pso = AdaptivePSO(swarm_size=SWARM)
     step = make_pso_train_step(*_coeffs(cfg), pso, num_timesteps=cfg.num_timesteps, nz=cfg.nz,
                                ema_decay=EMA, use_ema=True, trigger=TRIGGER)
     for i in (0, 1):  # step 0 fires both swarms, step 1 only accumulates
-        dr = np_step_draws(cfg, B, 30 + i)
+        dr = draw(cfg, 30 + i)
         keys = (jax.random.PRNGKey(40 + i), jax.random.PRNGKey(50 + i))
         jst, (errD_real, errD_fake, errG), fired = _jax_pso_next(jax_fns[0], jst, jpso, real,
                                                                  dr, keys)
@@ -436,17 +506,14 @@ def test_cli_converts_and_the_loop_resumes_from_content_ckpt(world, tmp_path, mo
                                                            "cpu"))
 
 
-@pytest.mark.parametrize("what,item", [("zero1", "item 7"), ("fourier", "item 4")])
+@pytest.mark.parametrize("what,item", [("zero1", "item 7")])
 def test_unported_states_raise(world, what, item):
     cfg, _, _, pG, pD, _ = world
     tx = jmake_optimizer(0.5, 0.9, 0.0, 1.0)
     raw = serialization.to_state_dict(_np_tree(JTrainState(
         params_G=pG, params_D=pD, buffers_G={}, opt_G=tx.init(pG), opt_D=tx.init(pD),
         ema_G=pG, step=jnp.int32(1), epoch=jnp.int32(1))))
-    if what == "zero1":
-        raw["opt_G"] = {"mu": np.zeros((2, 8), np.float32), "nu": np.zeros((2, 8), np.float32),
-                        "count": np.int32(1)}
-    else:
-        raw["buffers_G"] = {"all_modules_0": {"W": np.zeros((4,), np.float32)}}
+    raw["opt_G"] = {"mu": np.zeros((2, 8), np.float32), "nu": np.zeros((2, 8), np.float32),
+                    "count": np.int32(1)}
     with pytest.raises(NotImplementedError, match=item):
         content.load_flax_content(raw, content.empty_state(cfg, "cpu"))

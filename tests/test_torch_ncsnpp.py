@@ -128,16 +128,6 @@ def test_state_dict_from_flax_equals_export(cfg, jax_model):
     assert set(net.state_dict()) == set(theirs)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("resblock_type", "ddpm"), ("progressive", "output_skip"), ("progressive_input", "none"),
-    ("embedding_type", "fourier"), ("fir", False), ("conditional", False),
-    ("not_use_tanh", True), ("centered", False),
-])
-def test_unported_options_raise(cfg, key, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NCSNpp.from_config(cfg.replace(**{key: value}))
-
-
 def test_registry_and_dtype_names(cfg):
     assert get_model("ncsnpp") is NCSNpp
     with pytest.raises(ValueError, match="compute_dtype"):

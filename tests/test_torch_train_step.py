@@ -24,8 +24,6 @@ and that reaches the next losses at ~1e-5 relative.
 """
 
 import functools
-import importlib.util
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -69,6 +67,7 @@ from ddgan_torch.utils import randomize_parameters_
 
 from _torch_port import (  # noqa: F401  (one_torch_thread: an autouse fixture)
     celeba256_config,
+    chip_smoke,
     count_pallas_calls,
     flax_params_from_port,
     nchw,
@@ -84,16 +83,6 @@ LR = 1e-3
 R1_GAMMA = 1.0
 LAZY_REG = 2
 EMA = 0.9
-ROOT = Path(__file__).resolve().parent.parent
-
-
-def _chip_smoke():
-    """`chip_smoke.py` as a module (it runs nothing on import), for the
-    launch-count formula that its GPU phases assert."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def rel_err(got, want) -> float:
@@ -121,7 +110,16 @@ def _torch_draws(np_draws) -> StepDraws:
 def world():
     """The tiny models with shared random weights, the batch, two steps'
     draws, and the JAX reference of those two steps."""
-    cfg = tiny_config(dropout=0.0)
+    return _world(tiny_config(dropout=0.0))
+
+
+@pytest.fixture(scope="module", params=["pyramid_sum", "ddpm_fir"])
+def family_world(request):
+    """`world` for a generator option family of `chip_smoke.FAMILIES`."""
+    return _world(tiny_config(dropout=0.0, **chip_smoke().FAMILIES[request.param]))
+
+
+def _world(cfg):
     jgen = JNCSNpp.from_config(cfg)
     jdisc = JSmall(nc=2 * cfg.num_channels, ngf=cfg.ngf, t_emb_dim=cfg.t_emb_dim)
     s = cfg.image_size
@@ -264,6 +262,35 @@ def test_two_steps_match_jax(world, r1_shared):
         _assert_tree_close(state.ema_G, want["ema"], 1e-5, "EMA")
 
 
+def test_family_two_steps_match_jax(family_world):
+    """`test_two_steps_match_jax` for the output and input pyramids (sum) and
+    for DDPM resblocks with FIR resampling and no tanh: step 0 with R1, step
+    1 without; losses, penalty, gradients and the EMA at its bounds. The
+    parameters are held at 1e-5 wherever G's step-0 gradient is at least
+    1e-4 of its tensor's largest: below that the gradient bound (1e-4 of
+    the largest) does not fix the sign-like first Adam step lr·g/(|g| + 1e-8),
+    and those elements are held within 3·lr, the most two Adam steps move
+    them."""
+    cfg, g_sd, d_sd, real, draws, ref = family_world
+    state, step = _port_state(cfg, g_sd, d_sd)
+    g0 = state_dict_from_flax(ref[0]["gG"])
+    for i, (dr, want) in enumerate(zip(draws, ref)):
+        m = step(state, nchw(real), None, LR, LR, draws=_torch_draws(dr))
+        for name in ("errD_real", "errD_fake", "errG", "grad_penalty"):
+            assert abs(float(getattr(m, name)) - want[name]) <= 1e-4 * abs(want[name]), name
+        assert (want["grad_penalty"] > 0) == (i == 0)
+        _assert_tree_close(_grads(state.disc), want["gD"], "rel", f"D grads, step {i}")
+        _assert_tree_close(_grads(state.gen), want["gG"], "rel", f"G grads, step {i}")
+        _assert_tree_close(dict(state.disc.named_parameters()), want["params_D"], 1e-5, "D")
+        _assert_tree_close(state.ema_G, want["ema"], 1e-5, "EMA")
+        params_G = state_dict_from_flax(want["params_G"])
+        for k, p in state.gen.named_parameters():
+            determined = g0[k].abs() >= 1e-4 * g0[k].abs().max()
+            err = (p.detach() - params_G[k]).abs()
+            assert float(err[determined].max()) <= 1e-5, (i, k)
+            assert float(err.max()) <= 3 * LR, (i, k)
+
+
 def test_update_g_false_updates_d_only(world):
     cfg, g_sd, d_sd, real, draws, ref = world
     state, step = _port_state(cfg, g_sd, d_sd, update_g=False)
@@ -308,16 +335,22 @@ def test_seeded_steps_repeat_with_dropout():
     assert d.t.dtype == torch.int64 and d.z.shape == (2, 5) and d.noise_post_g.shape == (2, 3, 8, 8)
 
 
-@pytest.mark.parametrize("case", ["flagship_structure", "celeba256_structure"])
+@pytest.mark.parametrize("case", ["flagship_structure", "celeba256_structure",
+                                  "pyramid_sum", "ddpm_fir"])
 def test_fir_calls_by_role_follow_the_chip_smoke_formula(case):
     """The FIR Functions' calls per step by pattern and order, on an R1 and a
     non-R1 step, are the counts `chip_smoke.py` asserts on the GPU: the
-    tiny flagship (DiscriminatorSmall, R1 recomputed below 256²) and the
-    six CelebA-HQ 256 levels at image 64 with DiscriminatorLarge and the
-    shared R1 forward."""
-    smoke = _chip_smoke()
-    if case == "flagship_structure":
-        cfg = tiny_config()
+    tiny flagship (DiscriminatorSmall, R1 recomputed below 256²), alone and
+    with the option families `pyramid_sum` (the pyramids' up2x and down2x;
+    no backward for the input pyramid's, which acts on x_{t+1}) and
+    `ddpm_fir` (one call per DDPM Upsample / Downsample), and the six
+    CelebA-HQ 256 levels at image 64 with DiscriminatorLarge and the shared
+    R1 forward."""
+    smoke = chip_smoke()
+    family = {}
+    if case != "celeba256_structure":
+        family = smoke.FAMILY_FIR.get(case, {})
+        cfg = tiny_config(**smoke.FAMILIES.get(case, {}))
         disc = DiscriminatorSmall(nc=6, ngf=4, t_emb_dim=cfg.t_emb_dim)
         shared, b = "auto", 4
     else:
@@ -339,7 +372,7 @@ def test_fir_calls_by_role_follow_the_chip_smoke_formula(case):
         fir2x.reset_launch_counts()
         step(state, real, rng, LR, LR)
         n_d = sum(getattr(disc, f"conv{i}").downsample for i in range(1, disc.n_blocks + 1))
-        want = smoke.expected_fir_calls(n_d, n_g, r1, shared == "yes")
+        want = smoke.expected_fir_calls(n_d, n_g, r1, shared == "yes", **family)
         assert fir2x.CALLS == want, (case, r1)
     assert fir2x.LAUNCHES == {"down2x": 0, "up2x": 0}
 

@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with a CUDA GPU, nvcc and
 PyTorch built for CUDA. It drives the port's two sampler paths, its two
 train steps, its train loop through both train CLIs, its evaluation (FID
 through the sampler CLI, the Inception Score), the PSO optimizer, loop and
-hyperparameter search, the content.ckpt bridge, every generator option
-and the legacy layer library, with seeded weights,
+hyperparameter search, the content.ckpt bridge, every generator option,
+the legacy layer library and data parallelism, with seeded weights,
 and fails (non-zero exit) if any phase fails. Each phase prints its wall
 time.
 
@@ -236,7 +236,41 @@ and the legacy layer library:
      with strict=True; bytes and seconds of each;
  43. every class of `nn/legacy.py` and both `ops/fused_act.py` functions
      once on the card against the CPU, f32, TF32 off (<= 1e-5 of max|ref|);
- 44. print the result, a `{"kernels": [...]}` line (the forward entries and
+
+Data parallelism (`ddgan_torch.parallel`, `train/zero1.py`). The card is
+one GPU, and NCCL refuses two ranks on one device, so the ranks here are
+one NCCL rank, or two gloo ranks sharing the card:
+
+ 44. an NCCL group of size 1 (a `file://` rendezvous) runs `all_reduce`,
+     `reduce_scatter_tensor` and `all_gather_into_tensor` on one float32
+     buffer of the flagship G's parameter count, each checked and timed
+     (CUDA events); then two spawned gloo processes report which of the
+     three they take on CUDA tensors;
+ 45. the flagship from its init, bf16, batch 64, dropout 0.1, four steps
+     (R1 at step 0) with the same draws three ways in lockstep: without a
+     group, replicated under the size-1 group (equal to the group-less run
+     bit for bit, cuDNN deterministic) and ZeRO-1 under it (within rtol
+     3e-4, atol 3e-5 of replicated, the JAX package's bounds in
+     tests/test_zero1.py, after the first step, whose gradients are the
+     same; after each later one its distance is printed: bf16 carries the
+     last-bit differences of the two Adam formulas into gradients near
+     zero, whose sign-like Adam steps then differ by up to 2·lr); the same
+     four steps of replicated and ZeRO-1 in float32, TF32 off, within those
+     bounds after every step; then ms per step of the three bf16 runs in
+     turns, and the gradient means and ZeRO-1's collectives alone, per
+     step;
+ 46. two gloo ranks sharing the card through `parallel.init_processes` and
+     `train.loop.train` (`device` cuda): the flagship at batch 64 per rank,
+     two epochs of 4 steps; the ranks' weights and EMA equal (a CRC of
+     every byte), each rank's FIR calls as `expected_run_calls`, each
+     rank's time, peak memory and optimizer bytes; rank 0's weights after
+     the first step against a one-process emulation (each shard's losses
+     backpropagated at half weight, then the step) within phase 45's
+     bounds; rank 0's content.pth resumed by a one-process run for a third
+     epoch, and the sampler CLI's 64 PNGs from its netG; then the same two
+     ranks with ZeRO-1 if phase 44 found that gloo takes its collectives on
+     CUDA tensors (else printed as held on the CPU only);
+ 47. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path, the
      pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
      the `{"ok": true, ...}` line last.
@@ -262,6 +296,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2917,6 +2952,529 @@ def legacy_on_card(dev) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (ddgan_torch.parallel, train/zero1.py) on the one card
+PARALLEL_ITERS = 4  # steps an epoch of phase 46's two ranks (R1 at step 0)
+PARALLEL_BOUNDS = dict(rtol=3e-4, atol=3e-5)  # ZeRO-1 against replicated (tests/test_zero1.py)
+# past the first bf16 step, the share of weight and EMA elements that may lie
+# beyond PARALLEL_BOUNDS: about 5x the 1,012 of 109M (9.3e-6) measured after
+# four steps on an H100
+ZERO1_BF16_OUTSIDE = 5e-5
+
+
+def adam_ratio_bound(b1: float, b2: float, t: int) -> float:
+    """The most |m_hat| / sqrt(v_hat) can be at Adam's step t, whatever the
+    gradients: by Cauchy-Schwarz over the two moments' weights w_k and u_k,
+    sqrt(sum w_k^2 / u_k)."""
+    w = [(1 - b1) * b1 ** (t - k) / (1 - b1 ** t) for k in range(1, t + 1)]
+    u = [(1 - b2) * b2 ** (t - k) / (1 - b2 ** t) for k in range(1, t + 1)]
+    return math.sqrt(sum(a * a / b for a, b in zip(w, u)))
+
+
+def apart_bound(cfg, steps: int) -> float:
+    """The most two Adam runs' weights can lie apart after `steps` steps from
+    one init: each step moves either run by at most lr times the ratio bound
+    (eps only shrinks it), and the EMA lies within its weights' spread."""
+    return 2 * sum(max(cfg.lr_g * adam_ratio_bound(cfg.beta1_g, cfg.beta2_g, t),
+                       cfg.lr_d * adam_ratio_bound(cfg.beta1_d, cfg.beta2_d, t))
+                   for t in range(1, steps + 1))
+
+
+def launch_on_card(fn, args, directory: Path, deadline_s: float, what: str) -> None:
+    """`parallel.launch` of `fn(rank, local_rank, args)` on two gloo ranks
+    sharing cuda:0 (NCCL refuses two ranks on one device), meeting through a
+    `file://` rendezvous in `directory`. A rank that fails, or the deadline,
+    kills the other and fails the phase, with the ranks' logs."""
+    import datetime
+
+    from ddgan_torch.parallel import launch
+
+    args.num_process_per_node, args.num_proc_node, args.node_rank = 2, 1, 0
+    args.what_backend = "gloo"
+    try:
+        launch(args, fn, init_method=f"file://{directory}/rendezvous", device="cuda:0",
+               deadline_s=deadline_s, timeout=datetime.timedelta(seconds=300))
+    except RuntimeError as e:
+        for r in range(2):
+            log = directory / f"rank{r}.log"
+            print(f"--- rank {r}:\n" + (log.read_text()[-3000:] if log.exists() else ""))
+        check(False, f"{what}: {e}")
+
+
+def rank_log(directory: str, rank: int) -> None:
+    """This rank's output, and its traceback if it fails, into rank<r>.log."""
+    sys.stdout = sys.stderr = open(Path(directory) / f"rank{rank}.log", "w", buffering=1)
+
+
+def _gloo_probe_rank(rank: int, local_rank: int, args) -> None:
+    """Which of the three flat collectives gloo takes on CUDA tensors."""
+    import torch.distributed as dist
+
+    del local_rank
+    rank_log(args.directory, rank)
+    world = dist.get_world_size()
+    dev = torch.device("cuda", 0)
+    n = 1 << 20
+    x = torch.full((n,), float(rank + 1), device=dev)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == 3.0).all())
+
+    def reduce_scatter_tensor():
+        y = torch.empty(n // world, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        return bool((y == 3.0).all())
+
+    def all_gather_into_tensor():
+        y = torch.empty(n * world, device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return bool((y[:n] == 1.0).all() and (y[n:] == 2.0).all())
+
+    out = {}
+    for fn in (all_reduce, reduce_scatter_tensor, all_gather_into_tensor):
+        try:
+            out[fn.__name__] = "yes" if fn() else "wrong values"
+        except Exception as e:  # the probe reports what gloo refuses
+            out[fn.__name__] = f"no: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    Path(args.directory, f"gloo_probe_{rank}.json").write_text(json.dumps(out))
+
+
+def collectives_on_card(n: int, dev: torch.device, tmp: Path) -> dict:
+    """Phase 44: an NCCL group of size 1 (left initialised for phase 45)
+    runs the three flat collectives on n float32 values, checked and timed
+    (CUDA events); then two gloo processes probe them on CUDA tensors."""
+    import datetime
+
+    import torch.distributed as dist
+    from ddgan_torch.parallel import all_gather_, reduce_scatter_
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl_rendezvous", rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=300))
+    x = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(44), device=dev)
+    y, out = x.clone(), torch.empty_like(x)
+    dist.all_reduce(y)
+    reduce_scatter_(out, x)
+    check(torch.equal(y, x) and torch.equal(out, x), "size-1 NCCL all_reduce / reduce_scatter")
+    all_gather_(out, y)
+    check(torch.equal(out, x), "size-1 NCCL all_gather_into_tensor")
+    res = {"n": n, "bytes": 4 * n, "backend": dist.get_backend()}
+    for name, fn in (("all_reduce", lambda _: dist.all_reduce(y)),
+                     ("reduce_scatter_tensor", lambda _: reduce_scatter_(out, x)),
+                     ("all_gather_into_tensor", lambda _: all_gather_(out, y))):
+        ms = device_ms(fn, [None], 20)
+        res[name] = {"ms": ms, "GB_per_s": 4 * n / ms / 1e6}
+        print(f"NCCL size 1, {name} of {n} float32 ({4 * n / 1e6:.1f} MB): {ms:.4f} ms "
+              f"({res[name]['GB_per_s']:.1f} GB/s)")
+    probe_dir = tmp / "gloo_probe"
+    probe_dir.mkdir()
+    launch_on_card(_gloo_probe_rank, types.SimpleNamespace(directory=str(probe_dir)),
+                   probe_dir, 180, "gloo probe on CUDA tensors")
+    probe = [json.loads((probe_dir / f"gloo_probe_{r}.json").read_text()) for r in range(2)]
+    check(probe[0] == probe[1], f"gloo probe: the ranks disagree: {probe}")
+    res["gloo_cuda"] = probe[0]
+    print(f"gloo, 2 processes, CUDA tensors: {probe[0]}")
+    return res
+
+
+def opt_state_bytes(opt) -> int:
+    """The optimizer-state bytes this rank holds (the Adam moments)."""
+    if hasattr(opt, "mu"):  # Zero1Adam
+        return 4 * (opt.mu.numel() + opt.nu.numel())
+    return sum(v.numel() * v.element_size() for st in opt.adam.state.values()
+               for k, v in st.items() if k != "step")
+
+
+def _state_tensors(state) -> list:
+    return [t.detach() for t in (*state.gen.parameters(), *state.disc.parameters(),
+                                 *state.ema_G.values())]
+
+
+def _add_calls(a: dict | None, b: dict) -> dict:
+    if a is None:
+        return b
+    return {"fir": {k: {r: a["fir"][k][r] + n for r, n in v.items()} for k, v in b["fir"].items()},
+            "pair_conv3x3": {r: a["pair_conv3x3"][r] + n for r, n in b["pair_conv3x3"].items()}}
+
+
+def _outside(a, b) -> tuple[float, int]:
+    """max |a - b| over two states' weights and EMA, and the elements beyond
+    PARALLEL_BOUNDS of b."""
+    worst, bad = 0.0, 0
+    for x, y in zip(_state_tensors(a), _state_tensors(b)):
+        d = (x - y).abs()
+        worst = max(worst, float(d.max()))
+        bad += int((d > PARALLEL_BOUNDS["atol"] + PARALLEL_BOUNDS["rtol"] * y.abs()).sum())
+    return worst, bad
+
+
+def group_steps(cfg, dev: torch.device, fir2x, pair_conv, train_paths: dict) -> dict:
+    """Phase 45: the flagship (bf16, batch 64, dropout 0.1) from its init for
+    four steps (R1 at step 0) without a group, replicated under the size-1
+    NCCL group, and ZeRO-1 under it, in lockstep with the same draws;
+    deterministic cuDNN algorithms, so that the two replicated runs can be
+    equal to the last bit. ZeRO-1 against replicated after each step: within
+    PARALLEL_BOUNDS after the first (the same gradients on both) and after
+    all four in float32 (TF32 off); in bf16 after the later three, whose
+    rounding carries sign-like Adam steps of near-zero gradients apart,
+    within `apart_bound` and with at most ZERO1_BF16_OUTSIDE of the
+    elements beyond PARALLEL_BOUNDS. Then ms per step of the three bf16 runs
+    in turns, and the collectives each adds per step timed alone."""
+    import torch.distributed as dist
+    from ddgan_torch.diffusion import DiffusionCoefficients, PosteriorCoefficients
+    from ddgan_torch.models import NCSNpp, build_discriminator
+    from ddgan_torch.parallel import all_gather_, mean_across_ranks_, reduce_scatter_
+    from ddgan_torch.train import ClippedAdam, Zero1Adam, create_train_state, make_train_step
+
+    group = dist.group.WORLD
+    c32 = cfg.replace(compute_dtype="float32")
+    g_sd = NCSNpp.from_config(c32, generator=torch.Generator().manual_seed(45)).state_dict()
+    d_sd = build_discriminator(c32, generator=torch.Generator().manual_seed(46)).state_dict()
+    real = real_batch(cfg, TRAIN_BATCH, 47).to(dev)
+    step = make_train_step(
+        DiffusionCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev),
+        PosteriorCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev),
+        num_timesteps=cfg.num_timesteps, nz=cfg.nz, r1_gamma=cfg.r1_gamma,
+        lazy_reg=cfg.lazy_reg, ema_decay=cfg.ema_decay, use_ema=True)
+    modes = {"group-less": (ClippedAdam, None), "replicated": (ClippedAdam, group),
+             "zero1": (Zero1Adam, group)}
+
+    def build(c, cls, grp):
+        gen, disc = NCSNpp.from_config(c), build_discriminator(c)
+        gen.load_state_dict(g_sd)
+        disc.load_state_dict(d_sd)
+        st = create_train_state(
+            gen.to(dev), disc.to(dev),
+            cls(gen.parameters(), c.beta1_g, c.beta2_g, c.weight_decay_G, c.grad_clip_norm,
+                group=grp),
+            cls(disc.parameters(), c.beta1_d, c.beta2_d, c.weight_decay_D, c.grad_clip_norm,
+                group=grp), use_ema=True)
+        return st, torch.Generator(device=dev).manual_seed(48)
+
+    def lockstep(runs: dict, what: str) -> list:
+        calls, out_ = None, []
+        for i in range(4):
+            for name, (st, rng) in runs.items():
+                _reset(fir2x, pair_conv)
+                vals = [float(v) for v in step(st, real, rng, cfg.lr_g, cfg.lr_d)]
+                sync(dev)
+                check(all(np.isfinite(vals)) and (vals[4] > 0) == (i == 0),
+                      f"{what} {name} step {i}: {vals}")
+                if name == "replicated":
+                    calls = _add_calls(calls, _calls(fir2x, pair_conv))
+            worst, bad = _outside(runs["zero1"][0], runs["replicated"][0])
+            rec = {"zero1_max_abs": worst, "zero1_outside": bad}
+            if "group-less" in runs:
+                rec["replicated_equals_group_less"] = all(
+                    torch.equal(a, b) for a, b in zip(_state_tensors(runs["group-less"][0]),
+                                                      _state_tensors(runs["replicated"][0])))
+            out_.append(rec)
+            print(f"{what} step {i}: {rec}")
+        train_paths[f"flagship_nccl_group_{what}_4_steps"] = calls
+        return out_
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"steps": 4}
+    try:
+        runs = {name: build(cfg, cls, grp) for name, (cls, grp) in modes.items()}
+        out["bf16"] = lockstep(runs, "bf16")
+        check(all(r["replicated_equals_group_less"] for r in out["bf16"]),
+              "replicated under the size-1 NCCL group is not the group-less run bit for bit")
+        check(out["bf16"][0]["zero1_outside"] == 0,
+              f"ZeRO-1 after the first bf16 step (the same gradients): {out['bf16'][0]}")
+        n_elems = sum(t.numel() for t in _state_tensors(runs["replicated"][0]))
+        for i, r in enumerate(out["bf16"][1:], start=1):
+            r["max_abs_bound"] = apart_bound(cfg, i + 1)
+            r["outside_share"] = r["zero1_outside"] / n_elems
+            check(r["zero1_max_abs"] <= r["max_abs_bound"]
+                  and r["outside_share"] <= ZERO1_BF16_OUTSIDE,
+                  f"ZeRO-1 after bf16 step {i}: {r} (of {n_elems} elements; share limit "
+                  f"{ZERO1_BF16_OUTSIDE})")
+        print(f"bf16 steps 1-3 held within apart_bound and a share of {ZERO1_BF16_OUTSIDE} "
+              f"of {n_elems} elements: " + ", ".join(
+                  f"{r['zero1_max_abs']:.3g} <= {r['max_abs_bound']:.3g}, "
+                  f"{r['outside_share']:.3g}" for r in out["bf16"][1:]))
+        runs32 = {name: build(c32, modes[name][0], group) for name in ("replicated", "zero1")}
+        out["f32"] = lockstep(runs32, "f32")
+        check(all(r["zero1_outside"] == 0 for r in out["f32"]),
+              f"ZeRO-1 outside rtol {PARALLEL_BOUNDS['rtol']} atol {PARALLEL_BOUNDS['atol']} "
+              f"of replicated in f32: {out['f32']}")
+        del runs32
+        states = {name: r[0] for name, r in runs.items()}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    # ms per step (R1-free steps), the three modes in turns
+    times = {name: [] for name in modes}
+    for _ in range(3):
+        for name, st in states.items():
+            rng = torch.Generator(device=dev).manual_seed(49)
+            for _ in range(3):
+                st.step = 1
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                step(st, real, rng, cfg.lr_g, cfg.lr_d)
+                end.record()
+                torch.cuda.synchronize()
+                times[name].append(start.elapsed_time(end))
+    out["ms_per_step"] = {name: float(np.mean(t[1:])) for name, t in times.items()}
+    out["ms_per_step_all"] = times
+    # what each mode's collectives cost a step, timed alone (both networks)
+    st = states["replicated"]
+    grads = {"G": [torch.randn_like(p) for p in st.gen.parameters()],
+             "D": [torch.randn_like(p) for p in st.disc.parameters()]}
+    out["mean_across_ranks_ms"] = sum(
+        device_ms(lambda _, g=g: mean_across_ranks_(g, group), [None], 10) for g in grads.values())
+    zero1_ms = 0.0
+    for opt in (states["zero1"].opt_G, states["zero1"].opt_D):
+        flat = torch.randn(opt.world * opt.shard, device=dev)
+        shard, full, sq = (torch.empty(opt.shard, device=dev),
+                           torch.empty(opt.world * opt.shard, device=dev),
+                           torch.ones((), device=dev))
+
+        def collectives(_, flat=flat, shard=shard, full=full, sq=sq):
+            reduce_scatter_(shard, flat, group)
+            dist.all_reduce(sq, group=group)
+            all_gather_(full, shard, group)
+
+        zero1_ms += device_ms(collectives, [None], 10)
+    out["zero1_collectives_ms"] = zero1_ms
+    out["optimizer_bytes"] = {name: opt_state_bytes(s_.opt_G) + opt_state_bytes(s_.opt_D)
+                              for name, s_ in states.items()}
+    print("ms per flagship bf16 step (R1-free, batch 64), three modes in turns: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["ms_per_step"].items())
+          + f"; alone, per step: the replicated gradient means {out['mean_across_ranks_ms']:.3f} "
+          f"ms, the ZeRO-1 collectives {zero1_ms:.3f} ms; optimizer bytes "
+          f"{out['optimizer_bytes']}")
+    return out
+
+
+def _rank_train(rank: int, local_rank: int, args) -> None:
+    """One rank of phase 46: `loop.train` on the rank's device (cuda:0 for
+    both ranks), in the run directory, with its first step's weights written
+    and its launches counted."""
+    from ddgan_torch.data import SyntheticDataset
+    from ddgan_torch.ops import fir2x, pair_conv
+    from ddgan_torch.parallel import rank_device
+    from ddgan_torch.train import loop
+
+    rank_log(args.smoke_dir, rank)
+    dev = rank_device(local_rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    directory = Path(args.smoke_dir)
+    os.chdir(directory)
+    make = loop.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def rec(state, *sa, **skw):
+            m = step(state, *sa, **skw)
+            if state.step == 1:
+                torch.save({"params_G": {k: v.detach().cpu() for k, v in
+                                         state.gen.named_parameters()},
+                            "params_D": {k: v.detach().cpu() for k, v in
+                                         state.disc.named_parameters()},
+                            "ema": {k: v.cpu() for k, v in state.ema_G.items()}},
+                           directory / f"step1_rank{rank}.pt")
+            return m
+        return rec
+
+    loop.make_train_step = recording
+    _reset(fir2x, pair_conv)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = loop.train(args, dataset=SyntheticDataset(
+        n=2 * args.batch_size * args.limited_iter, image_size=args.image_size,
+        num_channels=args.num_channels, seed=args.seed), device=dev)
+    sync(dev)
+    digest = 0
+    for t in _state_tensors(state):
+        digest = zlib.crc32(t.detach().cpu().numpy().tobytes(), digest)
+    (directory / f"rank{rank}.json").write_text(json.dumps({
+        "s": time.perf_counter() - t0,
+        "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else math.nan,
+        "calls": _calls(fir2x, pair_conv), "launches": dict(fir2x.LAUNCHES),
+        "crc32": digest, "step": state.step, "epoch": state.epoch,
+        "optimizer_bytes": opt_state_bytes(state.opt_G) + opt_state_bytes(state.opt_D)}))
+
+
+def run_two_ranks(cfg, directory: Path) -> list:
+    """`loop.train` on two gloo ranks sharing cuda:0; each rank's record."""
+    directory.mkdir(parents=True)
+    args = copy.copy(cfg)
+    args.smoke_dir = str(directory)
+    launch_on_card(_rank_train, args, directory, 600, f"two ranks ({cfg.optimizer_sharding})")
+    return [json.loads((directory / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def emulate_first_step(cfg, dev: torch.device, want: dict) -> dict:
+    """The two ranks' first step in this process: each shard's D loss
+    backpropagated at half weight into one gradient (the mean of the two,
+    as the all-reduce gives it), Adam, then the same for G against the
+    updated D, then the EMA; each shard with its rank's batch and generator,
+    as the loop builds them. Compared with rank 0's weights after its step."""
+    import torch.nn.functional as F_
+    from ddgan_torch.data import SyntheticDataset
+    from ddgan_torch.diffusion import (DiffusionCoefficients, PosteriorCoefficients,
+                                       q_sample_pairs_with_noise, sample_posterior_with_noise)
+    from ddgan_torch.train import build_adam_state, build_models, cosine_lr, draw_step, ema_update
+    from ddgan_torch.train import loop
+
+    init_rng = torch.Generator().manual_seed(int(cfg.seed))
+    gen, disc = build_models(cfg, init_rng)
+    data_seed = int(torch.randint(2**62, (1,), generator=init_rng))
+    gen, disc = gen.to(dev), disc.to(dev)
+    state = build_adam_state(cfg, gen, disc)
+    rngs = [torch.Generator(device=dev).manual_seed(data_seed + r) for r in range(2)]
+    ds = SyntheticDataset(n=2 * cfg.batch_size * cfg.limited_iter, image_size=cfg.image_size,
+                          num_channels=cfg.num_channels, seed=cfg.seed)
+    reals = []
+    for r in range(2):
+        loader = loop.build_loader(cfg, ds, cfg.batch_size, 2, r)
+        loader.set_epoch(0)
+        reals.append(loop._to_device(next(iter(loader))[0], dev))
+    coeff = DiffusionCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max,
+                                         device=dev)
+    pos = PosteriorCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max, device=dev)
+
+    def apply_D(x, t, x_t):
+        return disc(x, t, x_t).reshape(-1).float()
+
+    gen.train()
+    disc.train()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        draws = []
+        state.opt_D.zero_grad()
+        for real, rng in zip(reals, rngs):  # D: step 0, R1 on, recomputed at 32²
+            gen.set_dropout_generator(rng)
+            d = draw_step(real, cfg.num_timesteps, cfg.nz, rng)
+            draws.append(d)
+            x_t, x_tp1 = q_sample_pairs_with_noise(coeff, real, d.t, d.noise_q, d.noise_next)
+            with torch.no_grad():
+                x_pos = sample_posterior_with_noise(pos, gen(x_tp1, d.t, d.z), x_tp1, d.t,
+                                                    d.noise_post)
+            errD_fake = F_.softplus(apply_D(x_pos, d.t, x_tp1)).mean()
+            errD_real = F_.softplus(-apply_D(x_t, d.t, x_tp1)).mean()
+            x_in = x_t.detach().requires_grad_(True)
+            (grad_real,) = torch.autograd.grad(apply_D(x_in, d.t, x_tp1).sum(), x_in,
+                                               create_graph=True)
+            penalty = cfg.r1_gamma / 2.0 * grad_real.float().reshape(
+                real.shape[0], -1).square().sum(1).mean()
+            ((errD_real + errD_fake + penalty) * 0.5).backward(inputs=list(disc.parameters()))
+        state.opt_D.step(cosine_lr(cfg.lr_d, 0, cfg.num_epoch))
+        state.opt_G.zero_grad()
+        for real, rng, d in zip(reals, rngs, draws):
+            gen.set_dropout_generator(rng)
+            _, x_tp1_g = q_sample_pairs_with_noise(coeff, real, d.t_g, d.noise_q_g,
+                                                   d.noise_next_g)
+            x_pos_g = sample_posterior_with_noise(pos, gen(x_tp1_g, d.t_g, d.z_g), x_tp1_g,
+                                                  d.t_g, d.noise_post_g)
+            errG = F_.softplus(-apply_D(x_pos_g, d.t_g, x_tp1_g)).mean()
+            (errG * 0.5).backward(inputs=list(gen.parameters()))
+        state.opt_G.step(cosine_lr(cfg.lr_g, 0, cfg.num_epoch))
+        ema_update(state.ema_G, gen, cfg.ema_decay)
+        sync(dev)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return step_outside({"params_G": dict(gen.named_parameters()),
+                         "params_D": dict(disc.named_parameters()), "ema": state.ema_G}, want)
+
+
+def step_outside(got: dict, want: dict) -> dict:
+    """Two records of a step's weights and EMA ({"params_G": {name: tensor},
+    ...}): max |got - want|, the elements beyond PARALLEL_BOUNDS of want,
+    and whether they are equal to the last bit."""
+    worst, bad, exact = 0.0, 0, True
+    for key, tensors in got.items():
+        for k, v in tensors.items():
+            v = v.detach()
+            w = want[key][k].to(v.device)
+            d_ = (v - w).abs()
+            worst = max(worst, float(d_.max()))
+            bad += int((d_ > PARALLEL_BOUNDS["atol"] + PARALLEL_BOUNDS["rtol"] * w.abs()).sum())
+            exact = exact and torch.equal(v, w)
+    return {"max_abs": worst, "outside": bad, "bit_exact": exact}
+
+
+def two_ranks_on_card(cfg, dev: torch.device, fir2x, pair_conv, gloo_cuda: dict,
+                      sampler_launches: dict, train_paths: dict) -> dict:
+    """Phase 46: two ranks over gloo sharing cuda:0 (NCCL refuses two ranks
+    on one device) through `init_processes` and `loop.train`: the flagship
+    at full width, batch 64 per rank, two epochs of PARALLEL_ITERS steps."""
+    from ddgan_torch.data import SyntheticDataset
+    from ddgan_torch.train import loop
+
+    run_cfg = cfg.replace(dataset="synthetic", exp="two_ranks", batch_size=TRAIN_BATCH,
+                          limited_iter=PARALLEL_ITERS, num_epoch=1, save_ckpt_every=1,
+                          what_backend="gloo", num_workers=0)
+    tmp = Path(tempfile.mkdtemp(prefix="two_ranks_"))
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    out = {}
+    ranks = run_two_ranks(run_cfg, tmp / "replicated")
+    steps = range(2 * PARALLEL_ITERS)
+    want = expected_run_calls(steps, cfg.lazy_reg, 3, len(cfg.ch_mult) - 1, shared=False)
+    for r, rec in enumerate(ranks):
+        check(rec["calls"]["fir"] == want and rec["step"] == len(steps) and rec["epoch"] == 2,
+              f"rank {r}: FIR calls {rec['calls']['fir']}, step {rec['step']}, expected {want}")
+        train_paths[f"two_ranks_rank{r}"] = rec["calls"]
+    check(ranks[0]["crc32"] == ranks[1]["crc32"], "the two ranks' weights and EMA differ")
+    emulated = emulate_first_step(run_cfg, dev, torch.load(
+        tmp / "replicated" / "step1_rank0.pt", weights_only=False))
+    check(emulated["outside"] == 0, f"step 1 against the emulation: {emulated}")
+    epochs = [line for line in (tmp / "replicated" / "rank0.log").read_text().splitlines()
+              if line.startswith("[epoch")]
+    out["replicated"] = {"ranks": ranks, "emulated_first_step": emulated, "epoch_lines": epochs}
+    print(f"two ranks (gloo, cuda:0, batch {TRAIN_BATCH} each): weights equal across ranks; "
+          f"step 1 against the one-process emulation: {emulated}; per rank: "
+          + "; ".join(f"{rec['s']:.1f} s, peak {rec['peak_gb']:.2f} GB, optimizer bytes "
+                      f"{rec['optimizer_bytes']}" for rec in ranks))
+    print("\n".join(epochs))
+
+    # rank 0's content.pth resumes in one process; its netG samples
+    cwd = os.getcwd()
+    os.chdir(tmp / "replicated")
+    try:
+        ds = SyntheticDataset(n=2 * TRAIN_BATCH * PARALLEL_ITERS, image_size=cfg.image_size,
+                              num_channels=cfg.num_channels, seed=cfg.seed)
+        resumed_cfg = run_cfg.replace(num_epoch=2, resume=True)
+        st = loop.train(resumed_cfg, dataset=ds, device=dev)
+        check(st.epoch == 3 and st.step == 3 * PARALLEL_ITERS,
+              f"resumed in one process: epoch {st.epoch}, step {st.step}")
+        del st
+        out["resumed_pngs"] = sample_from_loop(resumed_cfg, tmp / "replicated", fir2x,
+                                               pair_conv, sampler_launches)
+    finally:
+        os.chdir(cwd)
+
+    if gloo_cuda["reduce_scatter_tensor"] == gloo_cuda["all_gather_into_tensor"] == "yes":
+        z = run_two_ranks(run_cfg.replace(exp="two_ranks_zero1", optimizer_sharding="zero1"),
+                          tmp / "zero1")
+        check(z[0]["crc32"] == z[1]["crc32"] and all(r_["step"] == len(steps) for r_ in z),
+              "ZeRO-1 on two ranks: the ranks' weights differ")
+        against = step_outside(*(torch.load(tmp / mode / "step1_rank0.pt", weights_only=False)
+                                 for mode in ("zero1", "replicated")))
+        check(against["outside"] == 0,
+              f"ZeRO-1's step 1 on two ranks against replicated's: {against}")
+        out["zero1"] = {"ranks": z, "step1_against_replicated": against}
+        print(f"ZeRO-1 on two ranks: weights equal across ranks; step 1 against replicated's: "
+              f"{against}; per rank: "
+              + "; ".join(f"{rec['s']:.1f} s, peak {rec['peak_gb']:.2f} GB, optimizer bytes "
+                          f"{rec['optimizer_bytes']}" for rec in z))
+    else:
+        out["zero1"] = "held on the CPU only: gloo does not take its collectives on CUDA tensors"
+        print(f"ZeRO-1 on two ranks: {out['zero1']} ({gloo_cuda})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -3527,7 +4085,31 @@ def main() -> int:
     phase("43 the legacy layer library and fused_act on the card against the CPU")
     families["legacy"] = legacy_on_card(dev)
 
-    phase("44 result")
+    phase("44 collectives on the card: a size-1 NCCL group over the flagship G's parameter "
+          "count, and a 2-process gloo probe on CUDA tensors")
+    import torch.distributed as dist
+
+    par_tmp = Path(tempfile.mkdtemp(prefix="collectives_"))
+    atexit.register(shutil.rmtree, par_tmp, ignore_errors=True)
+    n_flagship = sum(p_.numel() for p_ in NCSNpp.from_config(cfg).parameters())
+    parallel = {"collectives": collectives_on_card(n_flagship, dev, par_tmp)}
+
+    phase("45 the flagship under the size-1 NCCL group: group-less, replicated and ZeRO-1, "
+          "four bf16 steps at batch 64, ZeRO-1 in f32 too, then their times in turns")
+    try:
+        parallel["group_steps"] = group_steps(cfg, dev, fir2x, pair_conv, train_paths)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    phase("46 two ranks over gloo sharing the card: the flagship through init_processes and "
+          "loop.train, two epochs; the first step against an emulation; resumed, sampled")
+    parallel["two_ranks"] = two_ranks_on_card(cfg, dev, fir2x, pair_conv,
+                                              parallel["collectives"]["gloo_cuda"],
+                                              sampler_launches, train_paths)
+    torch.cuda.empty_cache()
+
+    phase("47 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
                   "celeba256_inception_score": evals["inception_score"]["launches"],
@@ -3605,6 +4187,7 @@ def main() -> int:
         "eval": evals,
         "pso": pso_runs,
         "families": {**families, "pyramid_sum_celeba256": pyramid256},
+        "parallel": parallel,
         "build_s": build_s,
         "phase_s": PHASE_S,
     }))

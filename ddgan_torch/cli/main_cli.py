@@ -6,7 +6,8 @@ Counterpart of `ddgan_tpu/cli/main_cli.py`. Run as
 Minimal argparse (config_file, data_dir, limited_slices, resume, exp,
 dataset, batch_size, num_epoch, save_content); CLI values, defaults
 included, are written over ./configs/config.json in place, then training
-runs from the merged file. The device is as for `train_cli`.
+runs from the merged file, in this process or over several as `train_cli`
+runs; the device is as for `train_cli`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from pathlib import Path
 
 from .._device import resolve_device
 from ..config import Config, load_json_to_dict, modify_json_file, save_dict_to_json
+from .train_cli import run
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,9 +51,7 @@ def main(argv=None, config_dir="./configs", config_name="config.json"):
     config = load_json_to_dict(cfg_path)
     cfg = Config.from_dict(config)
 
-    from ..train import train
-
-    return train(cfg, device=device)
+    return run(cfg, device)
 
 
 if __name__ == "__main__":

@@ -12,6 +12,13 @@ config. The device is `cuda` unless $DDGAN_TORCH_DEVICE asks for the CPU
 (`_device.resolve_device`), not a flag, so the written-back config keeps
 the JAX package's key set. Without a GPU and without that, it raises before
 touching the config.
+
+With num_proc_node · num_process_per_node > 1 the CLI spawns
+num_process_per_node training processes on this node, one per GPU, which
+meet over torch.distributed (`parallel.launch`: the reference's env://
+rendezvous at --master_address, port 6020, backend --what_backend; gloo on
+the CPU) and train data-parallel, `batch_size` per process. Otherwise it
+trains in this process.
 """
 
 from __future__ import annotations
@@ -144,13 +151,25 @@ def resolve_config(args: argparse.Namespace,
     return Config.from_dict(config)
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    device = resolve_device()
-    cfg = resolve_config(args)
+def run(cfg: Config, device, **launch_kw):
+    """Train from the merged config: in this process, or over
+    num_process_per_node spawned processes when the run has more than one
+    (`launch_kw`: `parallel.launch`'s keywords, such as `init_method`)."""
+    if int(cfg.num_proc_node) * int(cfg.num_process_per_node) > 1:
+        from ..parallel import launch
+        from ..train.loop import train_rank
+
+        return launch(cfg, train_rank, **launch_kw)
     from ..train import train
 
     return train(cfg, device=device)
+
+
+def main(argv=None, **launch_kw):
+    args = build_parser().parse_args(argv)
+    device = resolve_device()
+    cfg = resolve_config(args)
+    return run(cfg, device, **launch_kw)
 
 
 if __name__ == "__main__":

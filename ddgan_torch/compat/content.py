@@ -14,18 +14,26 @@ swarms and the loss ring buffers in place of the optax states).
     keeps state in its scale_by_adam element only, found by its count/mu/nu
     keys (as `_find_adam_state_dict`, `checkpoint.py:74-83`); mu, nu and
     count become `torch.optim.Adam`'s exp_avg, exp_avg_sq and step, in
-    `ClippedAdam`'s parameter order.
+    `ClippedAdam`'s parameter order. A ZeRO-1 state (`Zero1OptState`: mu
+    and nu as (n, ⌈P/n⌉) rows, `ddgan_tpu/train/zero1.py`) is unpacked over
+    the parameter tree's leaves in `jax.tree.leaves` order (sorted keys;
+    `buffers_G` is not in `params`) and then takes the same route, which
+    gives what the JAX package's `_adapt_one_opt` makes of it in the
+    replicated layout (`checkpoint.py:186-206`). Either loads into
+    `ClippedAdam` or `Zero1Adam`, whose state dicts share the format.
   * Port to JAX (`flax_content`, `write_content_ckpt`): the same trees
     rebuilt in the layout and order that `serialization.to_state_dict`
     gives for the JAX template of the run (`compat/weights.flax_tree_from_port`;
     the chain's elements from the optimizer's clip and weight decay),
     written with `write_msgpack`. `ddgan_tpu.train.checkpoint.load_content`
-    loads it.
+    loads it. The optimizer state is always the replicated optax chain, a
+    ZeRO-1 run's included: the JAX package converts it to its rows on load
+    under optimizer_sharding 'zero1' (`checkpoint.py:164`).
 
 `buffers_G`, the Fourier embedding's projection when the generator has
 one, goes into the generator's state_dict with its parameters and comes
 back out of it; Adam, the EMA and the swarms cover the parameters only, as
-in the JAX package. A ZeRO-1 state raises (ROADMAP.md Queue 1 item 7).
+in the JAX package.
 
     python -m ddgan_torch.compat.content saved_info/dd_gan/<dataset>/<exp> --to pth
     python -m ddgan_torch.compat.content saved_info/dd_gan/<dataset>/<exp> --to ckpt
@@ -51,6 +59,7 @@ from ..train import checkpoint as ckpt
 from ..train.ema import ema_init
 from ..train.loop import build_adam_state, build_models
 from ..train.optim import ClippedAdam
+from ..train.zero1 import Zero1Adam
 from ..train.pso_optim import PSOState
 from ..train.pso_step import BUF, PSOTrainState
 from ..train.state import TrainState
@@ -60,13 +69,38 @@ from .weights import flax_tree_from_port, flax_trees_from_port, state_dict_from_
 _SWARM_PER_PARAM = {"particles": 1, "velocities": 1, "pbest_pos": 1, "gbest_pos": 0}
 
 
-def _refuse_unported(raw: dict) -> None:
-    for name in ("opt_G", "opt_D"):
-        if isinstance(raw.get(name), dict) and isinstance(raw[name].get("mu"), np.ndarray):
-            raise NotImplementedError(
-                f"content.ckpt's {name} is a ZeRO-1 state (optimizer_sharding 'zero1'), which is "
-                "not ported to ddgan_torch yet (ROADMAP.md Queue 1 item 7); resume it in the JAX "
-                "package with optimizer_sharding 'replicated' first.")
+def _is_zero1(opt: dict) -> bool:
+    """A `Zero1OptState` ({"mu", "nu", "count"}, moments as 2-D rows), as the
+    JAX package's `_is_zero1_state_dict` tells it apart."""
+    return set(opt) == {"mu", "nu", "count"} and np.ndim(opt["mu"]) == 2
+
+
+def _unpack_rows(rows, template: dict) -> dict:
+    """ZeRO-1 moment rows as a parameter tree shaped like `template`: the
+    flat vector cut over its leaves in `jax.tree.leaves` order (sorted keys)."""
+    flat = np.asarray(rows, np.float32).reshape(-1)
+    off = 0
+
+    def fill(node):
+        nonlocal off
+        if isinstance(node, dict):
+            return {k: fill(node[k]) for k in sorted(node)}
+        n = int(np.prod(node.shape))
+        if off + n > flat.size:
+            raise ValueError(f"ZeRO-1 moments hold {flat.size} values, fewer than the "
+                             "parameters they must cover")
+        leaf = flat[off:off + n].reshape(node.shape)
+        off += n
+        return leaf
+
+    return fill(template)
+
+
+def _zero1_as_adam(opt: dict, module: torch.nn.Module) -> dict:
+    """A ZeRO-1 state as the scale_by_adam state of the replicated chain."""
+    template = flax_tree_from_port(module, dict(module.named_parameters()))
+    return {"count": opt["count"], "mu": _unpack_rows(opt["mu"], template),
+            "nu": _unpack_rows(opt["nu"], template)}
 
 
 def _adam_element(opt: dict) -> dict:
@@ -91,8 +125,9 @@ def _swarm_from_flax(raw: dict, module: torch.nn.Module, device) -> PSOState:
     )
 
 
-def _adam_from_flax(raw_opt: dict, opt: ClippedAdam, module: torch.nn.Module) -> None:
-    adam = _adam_element(raw_opt)
+def _adam_from_flax(raw_opt: dict, opt: ClippedAdam | Zero1Adam, module: torch.nn.Module
+                    ) -> None:
+    adam = _zero1_as_adam(raw_opt, module) if _is_zero1(raw_opt) else _adam_element(raw_opt)
     count = int(adam["count"])
     sd = opt.state_dict()
     sd["state"] = {}
@@ -106,7 +141,6 @@ def _adam_from_flax(raw_opt: dict, opt: ClippedAdam, module: torch.nn.Module) ->
 def load_flax_content(raw: dict, state: TrainState | PSOTrainState):
     """Restore a JAX `content.ckpt`'s state dict (`read_msgpack` of the file)
     into the port's `state`, in place; returns it."""
-    _refuse_unported(raw)
     pso = isinstance(state, PSOTrainState)
     if pso != ("pso_G" in raw):
         raise ValueError(f"content.ckpt holds {'an Adam' if pso else 'a PSO'} run; this run's "
@@ -144,19 +178,21 @@ def _f32(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float32, copy=False)
 
 
-def _optax_chain(opt: ClippedAdam, module: torch.nn.Module) -> dict:
-    """The state dict of the JAX package's `make_optimizer` chain for `opt`."""
+def _optax_chain(opt: ClippedAdam | Zero1Adam, module: torch.nn.Module) -> dict:
+    """The state dict of the JAX package's `make_optimizer` chain for `opt`
+    (a ZeRO-1 optimizer's too: its `state_dict` gathers the moments)."""
+    sd = opt.state_dict()
     elements = []
     if opt.grad_clip_norm is not None and opt.grad_clip_norm > 0:
         elements.append({})  # clip_by_global_norm: no state
-    if opt.adam.param_groups[0]["weight_decay"]:
+    if sd["param_groups"][0]["weight_decay"]:
         elements.append({})  # add_decayed_weights: no state
-    st = opt.adam.state
-    count = int(st[opt.params[0]]["step"]) if opt.params[0] in st else 0
+    st = sd["state"]
+    count = int(st[0]["step"]) if 0 in st else 0
     moments = {}
     for key in ("exp_avg", "exp_avg_sq"):
-        moments[key] = {n: st[p][key] if p in st else torch.zeros_like(p)
-                        for n, p in zip(ckpt._names(module), opt.params)}
+        moments[key] = {n: st[i][key] if i in st else torch.zeros_like(p)
+                        for i, (n, p) in enumerate(zip(ckpt._names(module), opt.params))}
     elements.append({"count": _int32(count),
                      "mu": flax_tree_from_port(module, moments["exp_avg"]),
                      "nu": flax_tree_from_port(module, moments["exp_avg_sq"])})

@@ -7,8 +7,8 @@ semantics the train CLIs rely on).
 
 The perf keys `use_remat`, `remat_policy` and `s2d_conv` are accepted and
 have no effect; `r1_shared` selects the train step's R1 formulation, and
-`optimizer_sharding` "zero1" is refused by the train loop (ROADMAP.md
-Queue 1 item 7).
+`optimizer_sharding` "zero1" shards the Adam moments over the ranks
+(`train/zero1.py`).
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import resolve_device
+from ..parallel.mesh import all_gather_
 
 
 def var_func_vp(t: np.ndarray, beta_min: float, beta_max: float) -> np.ndarray:
@@ -315,3 +317,42 @@ def sample_from_model_with_noise(
         x_0 = generator(x, t, zs[step])
         x = sample_posterior_with_noise(coefficients, x_0, x, t, noises[step])
     return x
+
+
+def make_sharded_sampler(
+    coefficients: PosteriorCoefficients,
+    generator: GeneratorFn,
+    n_time: int,
+    image_shape: tuple[int, int, int],
+    nz: int,
+    per_device_batch: int,
+    group=None,
+) -> Callable[[int], torch.Tensor]:
+    """Batch generation over the ranks of `group`: the counterpart of the JAX
+    package's mesh-sharded sampler (`ddgan_tpu/diffusion/schedules.py:325-363`).
+
+    Returns `sample(seed) -> (R * per_device_batch, C, H, W)`, on every rank
+    (`image_shape` is (C, H, W): the port is NCHW). Rank r draws x_init and
+    then the sampler's draws from one generator on the coefficients' device
+    seeded with seed + r, runs `sample_from_model` on its `per_device_batch`,
+    and one `all_gather_into_tensor` returns the global batch in rank order,
+    so slice r equals a one-process `sample_from_model` with that generator
+    (and without a group, or on one rank, what the sampler CLI draws from
+    the seed). The JAX package folds the axis index into the call's key
+    instead.
+    """
+    rank = 0 if group is None else dist.get_rank(group)
+    world = 1 if group is None else dist.get_world_size(group)
+    device = coefficients.posterior_mean_coef1.device
+
+    def sample(seed: int) -> torch.Tensor:
+        rng = torch.Generator(device=device).manual_seed(int(seed) + rank)
+        x_init = torch.randn((per_device_batch, *image_shape), generator=rng, device=device)
+        local = sample_from_model(coefficients, generator, n_time, x_init, nz, rng).contiguous()
+        if group is None:
+            return local
+        out = local.new_empty((world * per_device_batch, *local.shape[1:]))
+        all_gather_(out, local, group)
+        return out
+
+    return sample

@@ -17,3 +17,4 @@ from .pso_step import (  # noqa: F401
 )
 from .state import TrainState, create_train_state  # noqa: F401
 from .step import StepDraws, StepMetrics, draw_step, make_train_step  # noqa: F401
+from .zero1 import Zero1Adam  # noqa: F401

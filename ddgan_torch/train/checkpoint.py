@@ -23,6 +23,16 @@ files load into the reference's tools and into the port's sampler CLI:
 
 Every file is written to `<name>.tmp` and then `os.replace`d into place, so
 a kill during a write leaves the previous file whole.
+
+On several ranks every rank calls `optimizer_states`, since a ZeRO-1
+optimizer's `state_dict` gathers the sharded moments from all of them
+(`train/zero1.py`), and one process passes what it returns to
+`save_content`. `load_content` runs on every rank, and a ZeRO-1 optimizer
+keeps its slice of the moments it loads. The
+optimizer state in `content.pth` is the reference's in either mode and at
+any world size, so a run resumes across modes and world sizes without the
+conversion that the JAX package's rows need
+(`ddgan_tpu/train/checkpoint.py:114-212`).
 """
 
 from __future__ import annotations
@@ -113,8 +123,21 @@ def _names(module: torch.nn.Module) -> list[str]:
     return [k for k, _ in module.named_parameters()]
 
 
-def save_content(exp_path: str | Path, state: TrainState | PSOTrainState, args: Any) -> None:
-    """Write `content.pth` and `content_args.json` (ddgan.py:545-561)."""
+def optimizer_states(state: TrainState | PSOTrainState) -> tuple[dict, dict] | None:
+    """The Adam state dicts of G and D (None for a PSO run). Under ZeRO-1 a
+    collective: every rank of the group calls it."""
+    if isinstance(state, PSOTrainState):
+        return None
+    return state.opt_G.state_dict(), state.opt_D.state_dict()
+
+
+def save_content(exp_path: str | Path, state: TrainState | PSOTrainState, args: Any,
+                 opts: tuple[dict, dict] | None = None) -> None:
+    """Write `content.pth` and `content_args.json` (ddgan.py:545-561). `opts`
+    is what `optimizer_states(state)` returned, taken here when not given."""
+    pso = isinstance(state, PSOTrainState)
+    if opts is None:
+        opts = optimizer_states(state)
     exp_path = Path(exp_path)
     exp_path.mkdir(parents=True, exist_ok=True)
     a = _args_dict(args)
@@ -126,7 +149,7 @@ def save_content(exp_path: str | Path, state: TrainState | PSOTrainState, args: 
         "netD_dict": state.disc.state_dict(),
         EMA_KEY: state.ema_G,
     }
-    if isinstance(state, PSOTrainState):
+    if pso:
         content["optimizerG"] = _swarm_dict(state.pso_G, _names(state.gen), state.loss_buf_G,
                                             state.buf_count_G)
         content["optimizerD"] = _swarm_dict(state.pso_D, _names(state.disc), state.loss_buf_D,
@@ -134,8 +157,8 @@ def save_content(exp_path: str | Path, state: TrainState | PSOTrainState, args: 
     else:
         num_epoch = int(a.get("num_epoch", 0))
         content.update({
-            "optimizerG": state.opt_G.state_dict(),
-            "optimizerD": state.opt_D.state_dict(),
+            "optimizerG": opts[0],
+            "optimizerD": opts[1],
             "schedulerG": _scheduler_state(a.get("lr_g", 0.0), int(state.epoch), num_epoch),
             "schedulerD": _scheduler_state(a.get("lr_d", 0.0), int(state.epoch), num_epoch),
         })

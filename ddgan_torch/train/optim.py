@@ -15,6 +15,13 @@ The L2 term and the moments are `torch.optim.Adam`'s, whose update is
 optax's `add_decayed_weights` then `scale_by_adam(eps=1e-8)` then -lr. The
 learning rate is set at each step. Its state dict is the inner Adam's, so a
 checkpoint holds the reference's optimizer state (`content.pth`).
+
+With a process `group`, the gradients are meaned across its ranks before
+the clip (`parallel.mean_across_ranks_`: one all-reduce of one flat float32
+buffer), as the JAX step `pmean`s them before `tx.update`
+(`ddgan_tpu/train/step.py:282-283`, `:307-308`), so every rank applies the
+same update to its replica. `train/zero1.py` is the same optimizer with the
+moments sharded over the ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ import math
 from typing import Iterable
 
 import torch
+
+from ..parallel.mesh import mean_across_ranks_
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -38,12 +47,14 @@ def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Te
 class ClippedAdam:
     """Clip → L2-into-grad → Adam(eps=1e-8) → -lr over `params`. `step(lr)`
     reads each parameter's `.grad` (a parameter without one gets zeros, as
-    optax sees a zero cotangent), clips, and applies one Adam update at `lr`."""
+    optax sees a zero cotangent), means it across the ranks of `group` when
+    one is given, clips, and applies one Adam update at `lr`."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], beta1: float, beta2: float,
-                 weight_decay: float = 0.0, grad_clip_norm: float | None = 1.0):
+                 weight_decay: float = 0.0, grad_clip_norm: float | None = 1.0, group=None):
         self.params = list(params)
         self.grad_clip_norm = grad_clip_norm
+        self.group = group
         self.adam = torch.optim.Adam(
             self.params, lr=0.0, betas=(beta1, beta2), eps=1e-8, weight_decay=weight_decay,
         )
@@ -56,6 +67,8 @@ class ClippedAdam:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.group is not None:
+            mean_across_ranks_([p.grad for p in self.params], self.group)
         if self.grad_clip_norm is not None and self.grad_clip_norm > 0:
             clip_by_global_norm_([p.grad for p in self.params], self.grad_clip_norm)
         self.adam.param_groups[0]["lr"] = float(lr)

@@ -17,6 +17,15 @@ masks drawn from the step's generator. The counts are host integers (they
 move by one a step), so deciding whether the swarm fires never waits for
 the device; the losses stay on the device. Tests inject the step's draws
 (`StepDraws`) and the swarms' (`PSODraws`).
+
+On several ranks (a process `group`), each rank computes the losses on its
+shard of the data, and the four losses are meaned across the ranks before
+they enter the ring buffers (`ddgan_tpu/train/pso_step.py:132-136`), so
+every rank steps its replica of the swarms on the same fitness values. The
+random streams are split as the JAX package splits its keys (`:100-108`):
+the swarms draw from `swarm_rng`, seeded alike on every rank, and the data
+and dropout draws from the rank's own `rng`; one generator carrying both
+would make the replicated swarms diverge at their first update.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ from ..diffusion.schedules import (
     q_sample_pairs_with_noise,
     sample_posterior_with_noise,
 )
+from ..parallel.mesh import mean_across_ranks_
 from .ema import ema_init, ema_update
 from .pso_optim import AdaptivePSO, PSODraws, PSOState
 from .step import StepDraws, StepMetrics, draw_step
@@ -83,15 +93,18 @@ def make_pso_train_step(
     ema_decay: float,
     use_ema: bool,
     trigger: int = 20,
+    group=None,
 ) -> Callable[..., StepMetrics]:
     """Build the PSO train step.
 
-    Returns step(state, real, rng, lr_g, lr_d, draws=None, pso_draws=None)
-    -> StepMetrics, which updates `state` in place. The learning rates are
-    taken and ignored (PSO has none). `pso_draws` is (D's, G's) `PSODraws`
-    for a step that fires the swarms. `trigger`: the swarm fires once MORE
-    than this many losses have accumulated; the state's buffers must hold
-    trigger + 1 (create_pso_train_state(buf_len=trigger + 1))."""
+    Returns step(state, real, rng, lr_g, lr_d, draws=None, pso_draws=None,
+    swarm_rng=None) -> StepMetrics, which updates `state` in place. The
+    learning rates are taken and ignored (PSO has none). `pso_draws` is (D's,
+    G's) `PSODraws` for a step that fires the swarms; without them the swarms
+    draw from `swarm_rng` (default: `rng`). `trigger`: the swarm fires once
+    MORE than this many losses have accumulated; the state's buffers must
+    hold trigger + 1 (create_pso_train_state(buf_len=trigger + 1)). With a
+    process `group` the losses are meaned across its ranks."""
 
     def apply_D(disc, x, t, x_t):
         return disc(x, t, x_t).reshape(-1).float()
@@ -99,7 +112,8 @@ def make_pso_train_step(
     @torch.no_grad()
     def step(state: PSOTrainState, real: torch.Tensor, rng: torch.Generator | None,
              lr_g: float, lr_d: float, draws: StepDraws | None = None,
-             pso_draws: tuple[PSODraws, PSODraws] | None = None) -> StepMetrics:
+             pso_draws: tuple[PSODraws, PSODraws] | None = None,
+             swarm_rng: torch.Generator | None = None) -> StepMetrics:
         del lr_g, lr_d
         gen, disc = state.gen, state.disc
         gen.train()
@@ -120,6 +134,10 @@ def make_pso_train_step(
         x0g = gen(x_tp1_g, d.t_g, d.z_g)
         x_pos_g = sample_posterior_with_noise(pos_coeff, x0g, x_tp1_g, d.t_g, d.noise_post_g)
         errG = F.softplus(-apply_D(disc, x_pos_g, d.t_g, x_tp1_g)).mean()
+        if group is not None:
+            losses = torch.stack([errD, errG, errD_real, errD_fake])
+            mean_across_ranks_([losses], group)
+            errD, errG, errD_real, errD_fake = losses.unbind()
 
         # accumulate, and step each swarm once its buffer is past the trigger
         # (ddgan.py:491-493, :513-515)
@@ -129,11 +147,12 @@ def make_pso_train_step(
         state.buf_count_D += 1
         state.buf_count_G += 1
         draws_D, draws_G = pso_draws if pso_draws is not None else (None, None)
+        swarm = rng if swarm_rng is None else swarm_rng
         if state.buf_count_D > trigger:
-            pso.step(state.pso_D, list(disc.parameters()), state.loss_buf_D, rng, draws_D)
+            pso.step(state.pso_D, list(disc.parameters()), state.loss_buf_D, swarm, draws_D)
             state.buf_count_D = 0
         if state.buf_count_G > trigger:
-            pso.step(state.pso_G, list(gen.parameters()), state.loss_buf_G, rng, draws_G)
+            pso.step(state.pso_G, list(gen.parameters()), state.loss_buf_G, swarm, draws_G)
             state.buf_count_G = 0
 
         if use_ema:

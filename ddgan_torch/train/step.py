@@ -25,9 +25,15 @@ update, then those of the G update (`draw_step`), and G's dropout masks
 come from the same generator. Tests inject the draws instead (`draws`),
 as the JAX package's `*_with_noise` functions take them.
 
-The JAX package's `pair_d`, ZeRO-1 and mesh sharding are TPU layout
-choices that leave the numbers the same; they are not part of this step
-(ROADMAP.md Queue 1).
+On several ranks the step stays rank-local: each rank's optimizers mean
+the gradients across the ranks (`ClippedAdam` / `Zero1Adam` with a process
+group, the JAX step's `pmean`, `ddgan_tpu/train/step.py:282-283`,
+`:307-308`), so the minibatch-stddev groups of D stay within a rank as they
+stay within a shard in JAX, and the metrics it returns are the rank's: the
+loop means them across the ranks once an epoch, which gives the numbers of
+the JAX step's per-step `pmean` (`:329-330`) without a sync each step. The
+JAX package's `pair_d` is a TPU layout choice that leaves the numbers the
+same; it is not part of this step.
 """
 
 from __future__ import annotations

@@ -504,16 +504,3 @@ def test_cli_converts_and_the_loop_resumes_from_content_ckpt(world, tmp_path, mo
     with pytest.raises(ValueError, match="Adam run"):
         content.load_content_ckpt(exp, content.empty_state(cfg.replace(kind_of_optim="pso"),
                                                            "cpu"))
-
-
-@pytest.mark.parametrize("what,item", [("zero1", "item 7")])
-def test_unported_states_raise(world, what, item):
-    cfg, _, _, pG, pD, _ = world
-    tx = jmake_optimizer(0.5, 0.9, 0.0, 1.0)
-    raw = serialization.to_state_dict(_np_tree(JTrainState(
-        params_G=pG, params_D=pD, buffers_G={}, opt_G=tx.init(pG), opt_D=tx.init(pD),
-        ema_G=pG, step=jnp.int32(1), epoch=jnp.int32(1))))
-    raw["opt_G"] = {"mu": np.zeros((2, 8), np.float32), "nu": np.zeros((2, 8), np.float32),
-                    "count": np.int32(1)}
-    with pytest.raises(NotImplementedError, match=item):
-        content.load_flax_content(raw, content.empty_state(cfg, "cpu"))

@@ -131,6 +131,19 @@ def test_models_nn_ops_mirror_the_jax_package():
     assert NOT_MIRRORED <= names("ddgan_tpu")
 
 
+def test_parallel_and_train_mirror_the_jax_package():
+    """Every module of ddgan_tpu/parallel and ddgan_tpu/train (ZeRO-1
+    included) has its counterpart of the same name in ddgan_torch, and the
+    import check above reads them (`_port_sources`)."""
+    for sub in ("parallel", "train"):
+        jax_mods = {p.name for p in (ROOT / "ddgan_tpu" / sub).glob("*.py")}
+        port_mods = {p.name for p in (ROOT / "ddgan_torch" / sub).glob("*.py")}
+        assert jax_mods <= port_mods, sub
+    sources = set(_port_sources())
+    for name in ("parallel/distributed.py", "parallel/mesh.py", "train/zero1.py"):
+        assert ROOT / "ddgan_torch" / name in sources
+
+
 @pytest.fixture
 def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -300,3 +313,25 @@ def test_chip_smoke_share_summary_reads_the_bound_criterion():
     assert out["shapes_with_bound_ge_5us"] == 2 and out["shapes"] == 3
     assert out["library_faster_at"] == ["(4, 512, 4, 4) bfloat16"]
     assert _chip_smoke().share_summary("none", rows[2:])["lowest_share"] is None
+
+
+@pytest.mark.parametrize("betas", [(0.5, 0.9), (0.9, 0.999)])
+def test_chip_smoke_adam_ratio_bound_holds_and_is_reached(betas):
+    """Phase 45's bound on how far one Adam step moves a weight, in units of
+    lr: |m_hat| / sqrt(v_hat) stays within it for heavy-tailed gradients,
+    and the gradients g_k = w_k / u_k reach it."""
+    cs, (b1, b2) = _chip_smoke(), betas
+    g = torch.randn(20000, 6, dtype=torch.float64, generator=torch.Generator().manual_seed(0))
+    g = g * torch.exp(2 * torch.randn(20000, 6, dtype=torch.float64,
+                                      generator=torch.Generator().manual_seed(1)))
+    m = v = torch.zeros(20000, dtype=torch.float64)
+    for t in range(1, 7):
+        m, v = b1 * m + (1 - b1) * g[:, t - 1], b2 * v + (1 - b2) * g[:, t - 1] ** 2
+        ratio = (m / (1 - b1 ** t)).abs() / (v / (1 - b2 ** t)).sqrt()
+        bound = cs.adam_ratio_bound(b1, b2, t)
+        assert float(ratio.max()) <= bound * (1 + 1e-12)
+        worst = [(b1 ** (t - k) * (1 - b1)) / (b2 ** (t - k) * (1 - b2)) for k in range(1, t + 1)]
+        m_w = sum((1 - b1) * b1 ** (t - k) * x for k, x in enumerate(worst, 1)) / (1 - b1 ** t)
+        v_w = sum((1 - b2) * b2 ** (t - k) * x * x for k, x in enumerate(worst, 1)) / (1 - b2 ** t)
+        assert abs(m_w) / v_w ** 0.5 == pytest.approx(bound, rel=1e-12)
+    assert cs.adam_ratio_bound(b1, b2, 1) == 1.0

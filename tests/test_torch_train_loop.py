@@ -403,12 +403,51 @@ def test_discriminator_large_through_the_loop(tmp_path, monkeypatch):
     assert all(torch.isfinite(p).all() for p in net.parameters())
 
 
-@pytest.mark.parametrize("setting,item", [({"optimizer_sharding": "zero1"}, "item 7")])
-def test_unported_settings_raise(tmp_path, monkeypatch, setting, item):
+def test_zero1_trains_at_world_size_one(tmp_path, monkeypatch):
+    """optimizer_sharding 'zero1' without a process group: `Zero1Adam` with
+    one shard, beside the replicated run of the same config. The first
+    step's losses are equal (nothing has been updated yet), the weights stay
+    within the JAX package's bounds between the modes (tests/test_zero1.py:
+    rtol 3e-4, atol 3e-5), and content.pth holds the reference's Adam state
+    in both, so either resumes the other."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
-        loop.train(Config(**{**TINY, **setting}), device=CPU)
-    assert not (tmp_path / "saved_info").exists()
+    runs, first = {}, {}
+    real_step = loop.make_train_step
+    for mode in ("replicated", "zero1"):
+
+        def recording(*a, **kw):
+            step = real_step(*a, **kw)
+
+            def rec(state, *args, **kws):
+                m = step(state, *args, **kws)
+                first.setdefault(mode, (float(m.errD), float(m.errG)))
+                return m
+            return rec
+
+        monkeypatch.setattr(loop, "make_train_step", recording)
+        runs[mode] = loop.train(Config(**TINY, exp=mode, optimizer_sharding=mode, num_epoch=1),
+                                device=CPU)
+    rep, z1 = runs["replicated"], runs["zero1"]
+    assert type(z1.opt_G).__name__ == "Zero1Adam" and z1.opt_G.world == 1
+    assert first["zero1"] == first["replicated"] and z1.step == rep.step == 4
+    for a, b in ((z1.gen, rep.gen), (z1.disc, rep.disc)):
+        for (k, p), q in zip(a.named_parameters(), b.parameters()):
+            np.testing.assert_allclose(p.detach().numpy(), q.detach().numpy(), rtol=3e-4,
+                                       atol=3e-5, err_msg=k)
+    raws = {m: torch.load(exp_dir(tmp_path, m) / "content.pth", weights_only=False)
+            for m in runs}
+    for name in ("optimizerG", "optimizerD"):
+        a, b = raws["zero1"][name], raws["replicated"][name]
+        assert a["param_groups"] == b["param_groups"]
+        assert [sorted(st) for st in a["state"].values()] == \
+            [sorted(st) for st in b["state"].values()]
+        for i, st in a["state"].items():
+            assert float(st["step"]) == float(b["state"][i]["step"]) == 4.0
+            np.testing.assert_allclose(st["exp_avg"].numpy(), b["state"][i]["exp_avg"].numpy(),
+                                       rtol=3e-4, atol=3e-5)
+    resumed = loop.train(Config(**TINY, exp="zero1", optimizer_sharding="replicated",
+                                num_epoch=2, resume=True), device=CPU)
+    assert resumed.step == 6 and type(resumed.opt_G).__name__ == "ClippedAdam"
 
 
 # ---------------------------------------------------------------- the CLIs

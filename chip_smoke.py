@@ -8,15 +8,15 @@ PyTorch built for CUDA. It drives the port's two sampler paths, its two
 train steps, its train loop through both train CLIs, its evaluation (FID
 through the sampler CLI, the Inception Score), the PSO optimizer, loop and
 hyperparameter search, the content.ckpt bridge, every generator option,
-the legacy layer library and data parallelism, with seeded weights,
-and fails (non-zero exit) if any phase fails. Each phase prints its wall
-time.
+the legacy layer library, data parallelism, with seeded weights, and
+the datasets of image files and LUNA16 volumes, and fails (non-zero exit)
+if any phase fails. Each phase prints its wall time.
 
 The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
 
   1. print the card's name and power limit (nvidia-smi), and whether PIL,
-     lmdb and torchvision import here (each tried in a subprocess; the
-     script uses none of them);
+     lmdb and torchvision import here (each tried in a subprocess; phases
+     47-49 use PIL as their reference, the port never imports it);
   2. build both CUDA kernels from ddgan_torch/csrc/ (sm_90a), one nvcc
      each, started together: fir2x.cu and pair_conv3x3.cu, printing what
      ptxas reports for each kernel (registers, shared memory, spills) and
@@ -270,7 +270,43 @@ one NCCL rank, or two gloo ranks sharing the card:
      epoch, and the sampler CLI's 64 PNGs from its netG; then the same two
      ranks with ZeRO-1 if phase 44 found that gloo takes its collectives on
      CUDA tensors (else printed as held on the CPU only);
- 47. print the result, a `{"kernels": [...]}` line (the forward entries and
+Image files and LUNA16 volumes (`ddgan_torch.data`: the JPEG decoder,
+PIL's resize in numpy, the datasets of image files and the cache of
+decoded volumes). PIL writes the files and is the reference here; the
+package never imports it. The decoder and resize times are this machine's
+host:
+
+ 47. the JPEG decoder (`data/jpeg.py`, built with the host C++ compiler)
+     against PIL on 76 seeded JPEGs (smooth fields plus noise) that PIL
+     writes: sizes 1x1, 7x9, 17x33 and 255x257 x quality 50, 75, 95, 100 x
+     4:4:4, 4:2:2, 4:2:0 and grey, then each layout with optimized tables,
+     restart markers every MCU and every MCU row: every file bit for bit
+     (no case has a bound); a progressive file must raise naming item 13;
+     ms per 256² q95 4:2:0 image, the port's and PIL's; then `resize`
+     against PIL, bilinear and bicubic, "L" and "RGB", shrinking and
+     enlarging (171 cases with `Luna16Dataset2`'s crop), bit for bit, and
+     the ms of a 256²->64² bicubic and a 320x288->284x256 bilinear;
+ 48. the CelebA-HQ 256 recipe on `custom` through `main_cli --data_dir`
+     (phase 28's run and checks: bf16, batch 4, epochs 0 and 1 of 4 steps,
+     K2 64 launches a step and K1 as `expected_fir_calls`, then the sampler
+     CLI at 256²) on 64 seeded 320x288 JPEGs written at q95 as
+     `tools/quality_soak256.py:61` writes them, with do_resize (284x256),
+     ToTensor, Normalize and CenterCrop (256²); then the loop's loader:
+     batch 0 against the same four files decoded by PIL and put through
+     the JAX package's transform arithmetic (copied here; max-abs <= 1e-6),
+     and its seconds per batch beside the bare step;
+ 49. the shipped configs/config.json (luna16, 64², 1 channel, nf 128, batch
+     16, T=1, f32) through `main_cli --data_dir ... --limited_slices True`
+     on three seeded 256³ int16 volumes with masks written by the port's
+     `write_nifti` (the slices-info file scanned from the masks first):
+     epochs 0 and 1 of 4 steps, K1 as `expected_fir_calls`, no K2, then
+     the sampler CLI. Its 256² slices need do_resize 'yes' (Resize(64),
+     PIL's bilinear): a generator built for 64² does not run at 256², in
+     either package. Then the loop's loader with the cache of decoded
+     volumes and without it, in turns (cache, none, none, cache; the same
+     batch from both), and `nii_to_png` with do_resize_to (64, 64) over the
+     slices-info file, every PNG equal to PIL's bicubic of its slice;
+ 50. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path, the
      pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
      the `{"ok": true, ...}` line last.
@@ -284,6 +320,7 @@ from __future__ import annotations
 import atexit
 import contextlib
 import copy
+import io
 import json
 import logging
 import math
@@ -1498,7 +1535,7 @@ def loop_through_train_cli(cfg, bare: dict, fir2x, pair_conv, sample_launches: d
             kept = [e for e in pre if e["epoch"] <= start]
             check(len(kept) == start and post[:start] == kept,
                   f"losses.json lost its history: before the kill {pre}, after {post}")
-            bares = {"bare": bare, "bare_after": bare_step_ms(cfg, state)}
+            bares = {**({"bare": bare} if bare else {}), "bare_after": bare_step_ms(cfg, state)}
             n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
             if keep is not None:
                 keep.mkdir(parents=True, exist_ok=True)
@@ -1520,11 +1557,11 @@ def loop_through_train_cli(cfg, bare: dict, fir2x, pair_conv, sample_launches: d
     return out
 
 
-def loop_through_main_cli(cfg, bare: dict, fir2x, pair_conv, k2_per_step: dict,
-                          sample_launches: dict) -> dict:
+def loop_through_main_cli(cfg, bare: dict | None, fir2x, pair_conv, k2_per_step: dict | None,
+                          sample_launches: dict, extra_argv: tuple = ()) -> dict:
     """`cfg` through `ddgan_torch.cli.main_cli` in this process (launches
-    counted), the checks of `check_loop_run`, and the sampler CLI on the
-    last netG_*.pth."""
+    counted; `extra_argv` the flags a user adds, as --data_dir), the checks
+    of `check_loop_run`, and the sampler CLI on the last netG_*.pth."""
     from ddgan_torch.cli import main_cli
     from ddgan_torch.train import checkpoint as ckpt
 
@@ -1540,11 +1577,11 @@ def loop_through_main_cli(cfg, bare: dict, fir2x, pair_conv, k2_per_step: dict,
                 # main_cli writes its own defaults over the config: name each that matters
                 state = main_cli.main(["--dataset", cfg.dataset, "--exp", cfg.exp,
                                        "--batch_size", str(cfg.batch_size), "--num_epoch",
-                                       str(cfg.num_epoch), "--save_content"])
+                                       str(cfg.num_epoch), "--save_content", *extra_argv])
             n_steps = (cfg.num_epoch + 1) * cfg.limited_iter
             calls = check_loop_run(cfg, exp, range(n_steps), fir2x, pair_conv, k2_per_step)
             check(state.step == n_steps, f"main_cli run ended at step {state.step}")
-            bares = {"bare": bare, "bare_after": bare_step_ms(cfg, state)}
+            bares = {**({"bare": bare} if bare else {}), "bare_after": bare_step_ms(cfg, state)}
             n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
         finally:
             os.chdir(cwd)
@@ -1833,7 +1870,7 @@ def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
             with Stopwatch() as sw, SamplerSpans(test_cli) as spans:
                 sw.wrap(test_cli, "generate_samples", "generate_wall")
                 sw.wrap(test_cli, "save_image", "png_encode")
-                sw.wrap(fid_mod, "decode_pngs", "png_decode")
+                sw.wrap(fid_mod, "decode_images", "png_decode")
                 sw.wrap(inc, "default_feature_fn", "inception_build", wrap_result="inception")
                 sw.wrap(fid_mod, "calculate_frechet_distance", "frechet_sqrtm")
                 reset_counts()
@@ -3475,6 +3512,379 @@ def two_ranks_on_card(cfg, dev: torch.device, fir2x, pair_conv, gloo_cuda: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# image files and LUNA16 volumes (phases 47-49)
+JPEG_SIZES = [(1, 1), (7, 9), (17, 33), (255, 257)]  # (H, W): 1 pixel, and not multiples of the MCU
+JPEG_QUALITIES = [50, 75, 95, 100]
+JPEG_LAYOUTS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "L": None}  # PIL's subsampling, or grey
+# ms of the decoders and resizers: the port's and PIL's calls in turns, this many each
+HOST_TIMING_CALLS = 20
+CUSTOM_IMAGES = 64  # the 256² recipe's `custom` set: 320 x 288 JPEGs at q95
+CUSTOM_W, CUSTOM_H = 320, 288
+CUSTOM_ITERS = 4  # steps an epoch (batch 4): epochs 0 and 1, R1 at step 0
+LUNA_SIDE = 256  # LUNA16 volumes are 256³ (Luna16Dataset.DATA_SHAPE)
+LUNA_NODULE_Z = [(100, 120), (60, 84), (150, 178)]  # each mask's z extent: 72 slices at bound 0
+LUNA_ITERS = 4  # steps an epoch (batch 16): epochs 0 and 1, R1 at step 0
+TOY_PALETTE = np.array([[0.95, 0.35, 0.25], [0.30, 0.75, 0.95], [0.45, 0.90, 0.40],
+                        [0.95, 0.85, 0.30]], np.float32)  # tools/quality_e2e.py:43-51
+
+
+def smooth_field(rs, h: int, w: int, channels: int) -> np.ndarray:
+    """A seeded (h, w, channels) uint8 image: a smooth field per channel plus
+    noise, so a JPEG coder meets flat blocks and busy ones."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    planes = []
+    for _ in range(channels):
+        a, b, phase_ = rs.uniform(0.02, 0.25, 3)
+        planes.append(127 + 90 * np.sin(a * xx + phase_) * np.cos(b * yy)
+                      + rs.normal(0, 14, (h, w)))
+    return np.clip(np.stack(planes, -1), 0, 255).astype(np.uint8)
+
+
+def pil_jpeg(Image, rs, h: int, w: int, layout: str, **save) -> bytes:
+    """A smooth field written by PIL as a JPEG of `layout` (JPEG_LAYOUTS)."""
+    arr = smooth_field(rs, h, w, 1 if layout == "L" else 3)
+    im = Image.fromarray(arr[:, :, 0] if layout == "L" else arr)
+    if layout != "L":
+        save["subsampling"] = JPEG_LAYOUTS[layout]
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", **save)
+    return buf.getvalue()
+
+
+def jpeg_cases(Image) -> list:
+    """(label, bytes) of every JPEG the decoder is held to: each size x
+    quality x layout, then each layout with optimized Huffman tables and
+    with restart markers every MCU and every MCU row."""
+    rs = np.random.RandomState(47)
+    cases = [(f"{h}x{w} q{q} {layout}", pil_jpeg(Image, rs, h, w, layout, quality=q))
+             for h, w in JPEG_SIZES for q in JPEG_QUALITIES for layout in JPEG_LAYOUTS]
+    for layout in JPEG_LAYOUTS:
+        for name, save in (("optimize", dict(optimize=True)),
+                           ("restart every MCU", dict(restart_marker_blocks=1)),
+                           ("restart every MCU row", dict(restart_marker_rows=1))):
+            cases.append((f"37x45 q85 {layout} {name}",
+                          pil_jpeg(Image, rs, 37, 45, layout, quality=85, **save)))
+    return cases
+
+
+def host_ms_in_turns(fns: dict, calls: int = HOST_TIMING_CALLS) -> dict:
+    """ms per call of each host function, measured in turns (a, b, b, a) of
+    `calls` calls each after one warm-up call, the two turns' means."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fns[k]()
+            times[k].append(1e3 * (time.perf_counter() - t0) / calls)
+    return {k: float(np.mean(v)) for k, v in times.items()}
+
+
+def jpeg_against_pil(Image) -> dict:
+    """The port's JPEG decoder against PIL on this host: every file of
+    `jpeg_cases` bit for bit (no case has a bound), a progressive file
+    refused naming item 13; the ms per 256² q95 4:2:0 image of each."""
+    from ddgan_torch.data.jpeg import decode_jpeg
+
+    cases = jpeg_cases(Image)
+    bad = []
+    for label, data in cases:
+        want = np.asarray(Image.open(io.BytesIO(data)))
+        got = decode_jpeg(data)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad.append(label)
+    check(not bad, f"JPEG decoder differs from PIL on {len(bad)} of {len(cases)} files: {bad}")
+    buf = io.BytesIO()
+    Image.fromarray(smooth_field(np.random.RandomState(0), 32, 32, 3)).save(
+        buf, "JPEG", quality=80, progressive=True)
+    try:
+        decode_jpeg(buf.getvalue())
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    check("item 13" in refused, f"a progressive JPEG was not refused naming item 13: {refused!r}")
+    data = pil_jpeg(Image, np.random.RandomState(48), 256, 256, "4:2:0", quality=95)
+    ms = host_ms_in_turns({"port": lambda: decode_jpeg(data),
+                           "pil": lambda: np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))})
+    print(f"JPEG decoder: {len(cases)} PIL files bit for bit ({len(JPEG_SIZES)} sizes x "
+          f"{len(JPEG_QUALITIES)} qualities x {len(JPEG_LAYOUTS)} layouts, and optimized tables "
+          f"and restart markers in each layout); a progressive file refused; 256² q95 4:2:0 "
+          f"{ms['port']:.3f} ms an image (port), {ms['pil']:.3f} ms (PIL), on this host")
+    return {"files": len(cases), "exact": len(cases), "ms_256_q95_420": ms}
+
+
+def resize_against_pil(Image) -> dict:
+    """The port's resize against PIL on this host, both filters on "L" and
+    "RGB" images, shrinking and enlarging, bit for bit; `Luna16Dataset2`'s
+    crop and bicubic on slices of three sizes; the ms of a 256²->64² bicubic
+    ("L") and a 320x288->284x256 bilinear ("RGB"), the port's and PIL's."""
+    from ddgan_torch.data import resize as rz
+    from ddgan_torch.data.datasets import Luna16Dataset2, crop
+
+    pil_filter = {rz.BILINEAR: Image.BILINEAR, rz.BICUBIC: Image.BICUBIC}
+    rs = np.random.RandomState(49)
+    shapes = [(1, 1), (5, 7), (64, 64), (140, 180), (256, 256), (288, 320), (300, 17)]
+    sizes = [(1, 1), (64, 64), (284, 256), (300, 3), (7, 300), (33, 47)]  # (W, H)
+    n, bad = 0, []
+    for h, w in shapes:
+        for rgb in (False, True):
+            img = smooth_field(rs, h, w, 3 if rgb else 1)
+            img = img if rgb else img[:, :, 0]
+            for size in sizes:
+                for name, f in pil_filter.items():
+                    want = np.asarray(Image.fromarray(img).resize(size, f))
+                    got = rz.resize(img, size, name)
+                    n += 1
+                    if got.shape != want.shape or not np.array_equal(got, want):
+                        bad.append(f"{h}x{w} {'RGB' if rgb else 'L'} -> {size} {name}")
+    for h, w in ((256, 256), (230, 210), (64, 70)):
+        img = smooth_field(rs, h, w, 1)[:, :, 0]
+        want = np.asarray(Image.fromarray(img).crop(Luna16Dataset2.CROP_BOX).resize((64, 64)))
+        got = rz.resize(crop(img, Luna16Dataset2.CROP_BOX), (64, 64), rz.BICUBIC)
+        n += 1
+        if not np.array_equal(got, want):
+            bad.append(f"Luna16Dataset2 crop and resize of {h}x{w}")
+    check(not bad, f"resize differs from PIL in {len(bad)} of {n} cases: {bad}")
+    grey = smooth_field(rs, 256, 256, 1)[:, :, 0]
+    rgb = smooth_field(rs, CUSTOM_H, CUSTOM_W, 3)
+    ms = {"bicubic_256_to_64_L": host_ms_in_turns({
+              "port": lambda: rz.resize(grey, (64, 64), rz.BICUBIC),
+              "pil": lambda: np.asarray(Image.fromarray(grey).resize((64, 64), Image.BICUBIC))}),
+          "bilinear_320x288_to_284x256_RGB": host_ms_in_turns({
+              "port": lambda: rz.resize(rgb, (284, 256), rz.BILINEAR),
+              "pil": lambda: np.asarray(Image.fromarray(rgb).resize((284, 256), Image.BILINEAR))})}
+    print(f"resize: {n} cases bit for bit against PIL (bilinear and bicubic, L and RGB, "
+          f"shrinking and enlarging, Luna16Dataset2's crop); on this host, ms port / PIL: "
+          + "; ".join(f"{k} {v['port']:.3f} / {v['pil']:.3f}" for k, v in ms.items()))
+    return {"cases": n, "exact": n, "ms": ms}
+
+
+def toy_image_wh(rng, w: int, h: int) -> np.ndarray:
+    """`tools/quality_e2e.py:toy_image` at w x h: a tilted background and
+    one or two coloured blobs, in [0, 1]."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy, xx = yy / (h - 1), xx / (w - 1)
+    base = rng.uniform(0.05, 0.25, size=3).astype(np.float32)
+    tilt = rng.uniform(-0.15, 0.15, size=3).astype(np.float32)
+    img = base[None, None, :] + yy[:, :, None] * tilt[None, None, :]
+    for _ in range(rng.randint(1, 3)):
+        color = TOY_PALETTE[rng.randint(len(TOY_PALETTE))] * rng.uniform(0.8, 1.0)
+        cy, cx = rng.uniform(0.25, 0.75, size=2)
+        rad = rng.uniform(0.10, 0.22)
+        blob = np.exp(-(((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * rad ** 2)))
+        img = img + blob[:, :, None] * color[None, None, :]
+    return np.clip(img, 0.0, 1.0)
+
+
+def write_custom_jpegs(Image, data_dir: Path, n: int, w: int, h: int, seed: int) -> float:
+    """`custom`'s layout, data_dir/train/imgs/*.jpg: n seeded toy images at
+    w x h written at q95 as `tools/quality_soak256.py:61` writes them.
+    Returns the seconds it took."""
+    t0 = time.perf_counter()
+    folder = data_dir / "train" / "imgs"
+    folder.mkdir(parents=True)
+    for i in range(n):
+        rng = np.random.RandomState(seed * 7_000_003 + i)
+        arr = (toy_image_wh(rng, w, h) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(folder / f"img_{i:05d}.jpg", quality=95)
+    return time.perf_counter() - t0
+
+
+def pil_reference_items(Image, files, size: int) -> np.ndarray:
+    """The JAX package's item of each file with do_resize, ToTensor,
+    Normalize(0.5, 0.5) and CenterCrop (`ddgan_tpu/data/transforms.py`:
+    Resize :27-39, ToTensor :42-51, Normalize :54-60, CenterCrop :63-85,
+    copied here), on PIL's decode: (N, size, size, 3) float32."""
+    out = []
+    for f in files:
+        img = Image.open(f).convert("RGB")
+        w, h = img.size
+        if w <= h:
+            new_w, new_h = size, max(1, round(h * size / w))
+        else:
+            new_w, new_h = max(1, round(w * size / h)), size
+        x = np.asarray(img.resize((new_w, new_h), Image.BILINEAR)).astype(np.float32) / 255.0
+        mean = std = np.asarray((0.5,) * 3, np.float32)
+        x = (x - mean.reshape(1, 1, -1)) / std.reshape(1, 1, -1)
+        top, left = (x.shape[0] - size) // 2, (x.shape[1] - size) // 2
+        out.append(x[top:top + size, left:left + size])
+    return np.stack(out)
+
+
+def loader_seconds(loader, epoch: int, n: int) -> tuple[list, list]:
+    """Seconds of each of the first `n` batches of `epoch` from `loader`
+    (the loop's own loader class), and those batches' images."""
+    loader.set_epoch(epoch)
+    it = iter(loader)
+    times, images = [], []
+    try:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            images.append(next(it)[0])
+            times.append(time.perf_counter() - t0)
+    finally:
+        it.close()
+    return times, images
+
+
+def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict) -> dict:
+    """The CelebA-HQ 256 recipe on `custom` through `main_cli` (phase 28's
+    run and checks, with --data_dir): 64 seeded 320 x 288 JPEGs, do_resize
+    (284 x 256), ToTensor, Normalize and CenterCrop (256²); then the loop's
+    loader alone: batch 0 of epoch 0 against the same files decoded by PIL
+    through the JAX package's transform arithmetic (<= 1e-6), and seconds
+    per batch over an epoch."""
+    from ddgan_torch.data import make_dataset
+    from ddgan_torch.train.loop import build_loader
+
+    with tempfile.TemporaryDirectory() as data_tmp:
+        data = Path(data_tmp) / "custom"
+        write_s = write_custom_jpegs(Image, data, CUSTOM_IMAGES, CUSTOM_W, CUSTOM_H, seed=48)
+        cfg = cfg2.replace(dataset="custom", data_dir=str(data), mode="train", do_resize="yes",
+                           to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes",
+                           exp="celeba256_custom", batch_size=TRAIN_BATCH_256,
+                           limited_iter=CUSTOM_ITERS, num_epoch=1, save_ckpt_every=1)
+        run = loop_through_main_cli(cfg, bare, fir2x, pair_conv,
+                                    k2_per_step={"forward": 46, "dx": 18, "dx_library": 5},
+                                    sample_launches=sample_launches,
+                                    extra_argv=("--data_dir", str(data)))
+        ds = make_dataset(cfg)
+        loader = build_loader(cfg, ds, cfg.batch_size)
+        loader.set_epoch(0)
+        first = [ds.images_all[i] for i in loader._indices()[:cfg.batch_size]]
+        times, images = loader_seconds(loader, 0, len(loader))
+        want = pil_reference_items(Image, first, cfg.image_size)
+        err = float(np.abs(images[0] - want).max())
+        check(images[0].shape == (cfg.batch_size, cfg.image_size, cfg.image_size, 3)
+              and err <= 1e-6,
+              f"custom batch 0 {images[0].shape} against PIL and the JAX transforms: {err}")
+    s_per_batch = float(np.mean(times))
+    bare_ms = run["bare_after"]["plain_step"]
+    print(f"custom at 256²: {CUSTOM_IMAGES} JPEGs written in {write_s:.2f} s; batch 0 against "
+          f"PIL + the JAX transforms max-abs {err!r}; loader {1e3 * s_per_batch:.1f} ms a batch "
+          f"of {cfg.batch_size} (decode, resize to 284x256, ToTensor, Normalize, crop; "
+          f"{len(times)} batches, one thread) beside the bare bf16 step {bare_ms:.1f} ms "
+          f"({100 * 1e3 * s_per_batch / bare_ms:.1f}% of it)")
+    return {**run, "jpeg_write_s": write_s, "batch0_max_abs": err,
+            "loader_s_per_batch": s_per_batch, "loader_batch_s": times,
+            "loader_share_of_bare_step": 1e3 * s_per_batch / bare_ms}
+
+
+def write_luna_volumes(write_nifti, data_dir: Path, mask_dir: Path, side: int, nodule_z,
+                       seed: int) -> float:
+    """One seeded side³ int16 CT volume per entry of `nodule_z` (values
+    -1024..3071: 16³ blocks plus noise) and its mask, a box of ones over
+    that z extent; written by the port's `write_nifti`. Returns the seconds."""
+    t0 = time.perf_counter()
+    data_dir.mkdir()
+    mask_dir.mkdir()
+    rs = np.random.RandomState(seed)
+    for i, (z0, z1) in enumerate(nodule_z):
+        coarse = rs.randint(-1000, 3048, (side // 16,) * 3).astype(np.int16)
+        vol = coarse.repeat(16, 0).repeat(16, 1).repeat(16, 2)
+        vol += rs.randint(-24, 24, vol.shape).astype(np.int16)
+        write_nifti(data_dir / f"case{i}.nii.gz", vol)
+        mask = np.zeros((side,) * 3, np.uint8)
+        c = side // 2
+        mask[c - 12:c + 12, c - 10:c + 10, z0:z1] = 1
+        write_nifti(mask_dir / f"case{i}.nii.gz", mask)
+    return time.perf_counter() - t0
+
+
+def luna16_run(Image, fir2x, pair_conv) -> dict:
+    """The shipped configs/config.json (luna16, 64², 1 channel, nf 128,
+    batch 16, T=1) through `main_cli` at its own widths, on three seeded
+    256³ int16 volumes: the slices-info file scanned from the masks, the
+    run and checks of phase 28 (epochs 0 and 1 of 4 steps) and the sampler
+    CLI. Its 256² slices need do_resize 'yes' (Resize(64), PIL's bilinear):
+    a generator built for 64² does not run at 256² in either package.
+    Then the loop's loader alone, with the cache of decoded volumes and
+    without it, in turns (the same batches); and nii_to_png with
+    do_resize_to (64, 64) over the slices-info file against PIL's bicubic
+    of the same slices."""
+    from ddgan_torch.config import Config
+    from ddgan_torch.data import (Luna16Dataset, load_slice_info, make_dataset, read_nifti,
+                                  save_slice_info, slicecache, write_nifti)
+    from ddgan_torch.data.converters import nii_to_png
+    from ddgan_torch.train.loop import build_loader
+
+    shipped = json.loads((ROOT / "configs" / "config.json").read_text())
+    with tempfile.TemporaryDirectory() as data_tmp:
+        data_tmp = Path(data_tmp)
+        data_dir, mask_dir = data_tmp / "Ones", data_tmp / "processed_masks"
+        write_s = write_luna_volumes(write_nifti, data_dir, mask_dir, LUNA_SIDE, LUNA_NODULE_Z,
+                                     seed=49)
+        cwd = os.getcwd()
+        os.chdir(data_tmp)  # the scan writes ./slices_info.txt
+        try:
+            t0 = time.perf_counter()
+            scanned = Luna16Dataset(str(data_dir), str(mask_dir),
+                                    bound_exp_lim=int(shipped["bound_expand_limit"]),
+                                    single_axis=True, _where=shipped["axis_for_limit"])
+            scan_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+        info = data_tmp / "SlicesInfoZ.txt"
+        save_slice_info(scanned.slice_info, str(info))
+        want_slices = sum(z1 - z0 for z0, z1 in LUNA_NODULE_Z)
+        check(len(scanned.slice_info) == want_slices, f"{len(scanned.slice_info)} slices scanned")
+        cfg = Config.from_dict({**shipped, "data_dir": str(data_dir), "mask_dir": str(mask_dir),
+                                "path_to_slices_info": str(info), "do_resize": "yes",
+                                "exp": "luna16_shipped", "limited_iter": LUNA_ITERS,
+                                "num_epoch": 1, "save_ckpt_every": 1})
+        per_call = {k: v * cfg.num_timesteps
+                    for k, v in expected_g_fir(len(cfg.ch_mult) - 1).items()}
+        run = loop_through_main_cli(cfg, None, fir2x, pair_conv, None,
+                                    {**per_call, "pair_conv3x3": 0},
+                                    extra_argv=("--data_dir", str(data_dir),
+                                                "--limited_slices", "True"))
+        # the loader alone, with the cache and without it, in turns
+        loader = build_loader(cfg, make_dataset(cfg), cfg.batch_size)
+        saved = slicecache.CACHE
+        rounds, batches = [], {}
+        try:
+            for mode in ("cache", "none", "none", "cache"):
+                slicecache.CACHE = slicecache.VolumeCache(0 if mode == "none" else
+                                                          slicecache.CAPACITY)
+                times, images = loader_seconds(loader, 1, 1 if mode == "none" else 2)
+                rounds.append({"mode": mode, "batch_s": times,
+                               "decodes": slicecache.CACHE.decodes})
+                batches.setdefault(mode, images[0])
+        finally:
+            slicecache.CACHE = saved
+        check(np.array_equal(batches["cache"], batches["none"]),
+              "the loader's batch with the cache differs from the one without")
+        # the converter's resized PNGs against PIL's bicubic of the same slices
+        slices = load_slice_info(str(info))
+        t0 = time.perf_counter()
+        nii_to_png(slices, save_dir=str(data_tmp / "real_images"), do_resize_to=(64, 64))
+        convert_s = time.perf_counter() - t0
+        volumes, bad = {}, 0
+        for path, axis, index in slices:
+            if path not in volumes:
+                volumes[path] = read_nifti(path)
+            plane = np.take(volumes[path], index, axis="xyz".index(axis)).astype(np.uint8)
+            want = np.asarray(Image.fromarray(plane).resize((64, 64)))
+            name = f"{Path(path).name.split('.nii.gz')[0]}_{axis}_{index}.png"
+            bad += not np.array_equal(np.asarray(Image.open(data_tmp / "real_images" / name)),
+                                      want)
+        check(bad == 0, f"{bad} of {len(slices)} resized PNGs differ from PIL's bicubic")
+    cached = [r["batch_s"] for r in rounds if r["mode"] == "cache"]
+    uncached = [r["batch_s"][0] for r in rounds if r["mode"] == "none"]
+    step_ms = run["bare_after"]
+    print(f"luna16 (shipped config, do_resize yes): 3 volumes of {LUNA_SIDE}³ written in "
+          f"{write_s:.2f} s, {want_slices} slices scanned in {scan_s:.2f} s; loader s a batch "
+          f"of {cfg.batch_size}, in turns: with the cache (first batch from a cold cache, then "
+          f"warm) {cached}, without {uncached}; bare f32 step {step_ms['plain_step']:.1f} ms "
+          f"(R1 {step_ms['r1_step']:.1f}); nii_to_png of {len(slices)} slices to 64² "
+          f"{convert_s:.2f} s, every PNG equal to PIL's bicubic")
+    return {**run, "volume_write_s": write_s, "scan_s": scan_s, "slices": len(slices),
+            "loader_rounds": rounds, "nii_to_png_s": convert_s, "pngs_exact": len(slices)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -4109,7 +4519,25 @@ def main() -> int:
                                               sampler_launches, train_paths)
     torch.cuda.empty_cache()
 
-    phase("47 result")
+    phase("47 the JPEG decoder and both resize filters against PIL on this host")
+    from PIL import Image
+
+    image_files = {"jpeg": jpeg_against_pil(Image), "resize": resize_against_pil(Image)}
+
+    phase("48 the CelebA-HQ 256 recipe on `custom` JPEGs through main_cli at full width "
+          "(do_resize, crop), sampled at 256²")
+    image_files["custom_256"] = custom_run(Image, cfg2, train_times["celeba256"], fir2x,
+                                           pair_conv, bf16_launches)
+    train_paths["celeba256_custom_main_cli"] = image_files["custom_256"]["launches"]
+    torch.cuda.empty_cache()
+
+    phase("49 the shipped luna16 config through main_cli on 256³ volumes, sampled; the loader "
+          "with and without the volume cache; nii_to_png at 64²")
+    image_files["luna16_shipped"] = luna16_run(Image, fir2x, pair_conv)
+    train_paths["luna16_shipped_main_cli"] = image_files["luna16_shipped"]["launches"]
+    torch.cuda.empty_cache()
+
+    phase("50 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
                   "celeba256_inception_score": evals["inception_score"]["launches"],
@@ -4188,6 +4616,7 @@ def main() -> int:
         "pso": pso_runs,
         "families": {**families, "pyramid_sum_celeba256": pyramid256},
         "parallel": parallel,
+        "image_files": image_files,
         "build_s": build_s,
         "phase_s": PHASE_S,
     }))

@@ -1,12 +1,13 @@
-"""Host-side data layer (numpy and the standard library only).
+"""Host-side data layer (numpy, the standard library and the port's own
+C++ JPEG decoder).
 
-The port's own copy of `ddgan_tpu/data/`, limited to the datasets that need
-no image decoder: LUNA16 CT slices (pure-numpy NIfTI reader), positive-patch
-NPY volumes, StackMNIST (IDX files), CIFAR-10 (pickle batches) and the
-synthetic set; plus the yes/no-flag transform pipeline (ddgan.py:203-219)
-and the sharded, prefetching loader that replaces DataLoader +
-DistributedSampler. The datasets of image files raise, naming ROADMAP.md
-Queue 1 item 13.
+The port's own copy of `ddgan_tpu/data/`: LUNA16 CT slices (pure-numpy
+NIfTI reader behind an LRU of decoded volumes), positive-patch NPY volumes,
+JPEG and PNG folders, StackMNIST (IDX files), CIFAR-10 (pickle batches)
+and the synthetic set; PIL's bilinear and bicubic resize in numpy; the
+yes/no-flag transform pipeline (ddgan.py:203-219) and the sharded,
+prefetching loader that replaces DataLoader + DistributedSampler. The LMDB
+datasets raise, naming ROADMAP.md Queue 1 item 13d.
 """
 
 from .nifti import read_nifti, write_nifti  # noqa: F401

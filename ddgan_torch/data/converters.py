@@ -3,9 +3,10 @@
 The port's copy of `ddgan_tpu/data/converters.py` (reference:
 additionals/images.py, nii_to_png/_simple :87-145, nii_to_npy/_simple/_3d
 :151-265, npy_to_image :27-63). Volumes are read with the port's numpy
-NIfTI reader and PNGs written with `utils.encode_png` (8-bit grey or RGB),
-so no imaging package is needed. A `do_resize_to` that would change an
-image's size raises: PIL's resize is ROADMAP.md Queue 1 item 13's work.
+NIfTI reader (through the LRU of decoded volumes, `data/slicecache.py`),
+resized with the port's copy of PIL's resampler (`data/resize.py`) and
+written with `utils.encode_png` (8-bit grey or RGB), so no imaging package
+is needed.
 """
 
 from __future__ import annotations
@@ -17,7 +18,9 @@ from pathlib import Path
 import numpy as np
 
 from ..utils import encode_png
+from . import slicecache
 from .nifti import read_nifti
+from .resize import BICUBIC, resize
 
 
 def _slice_volume(patch: np.ndarray, where: str, index: int) -> np.ndarray:
@@ -30,24 +33,17 @@ def _slice_volume(patch: np.ndarray, where: str, index: int) -> np.ndarray:
     return patch[:, :, index]
 
 
-def _check_size(pixels: np.ndarray, do_resize_to) -> None:
-    """PIL's resize to the image's own (width, height) is a copy; any other
-    size needs PIL's resampling, which the port does not have yet."""
-    if do_resize_to is not None and tuple(do_resize_to) != (pixels.shape[1], pixels.shape[0]):
-        raise NotImplementedError(
-            f"resizing a {pixels.shape[1]}x{pixels.shape[0]} image to {tuple(do_resize_to)} "
-            "needs PIL's bilinear resize, which ddgan_torch does not have yet (ROADMAP.md "
-            "Queue 1 item 13); convert at the slices' own size (do_resize_to=None).")
-
-
 def nii_to_png_simple(nii_file_path, where, slice_index, only_z=True,
                       save_dir="./real_images", do_resize_to=(128, 128)):
     """One slice → PNG named {case}_{axis}_{index}.png. (images.py:87-122)"""
     if only_z and where != "z":
         return
-    patch = read_nifti(nii_file_path)
+    patch = slicecache.volume(nii_file_path)
     pixels = _slice_volume(patch, where, slice_index).astype(np.uint8)
-    _check_size(pixels, do_resize_to)
+    if do_resize_to is not None:
+        # `img.resize(do_resize_to)`: PIL's default filter, bicubic
+        # (ddgan_tpu/data/converters.py:37-38)
+        pixels = resize(pixels, tuple(do_resize_to), BICUBIC)
     name = os.path.split(nii_file_path)[-1].split(".nii.gz")[0]
     Path(save_dir, f"{name}_{where}_{slice_index}.png").write_bytes(encode_png(pixels))
 
@@ -71,7 +67,7 @@ def nii_to_npy_simple(nii_file_path, where, slice_index, only_z=True,
     """One slice → .npy. (images.py:151-180)"""
     if only_z and where != "z":
         return
-    patch = read_nifti(nii_file_path)
+    patch = slicecache.volume(nii_file_path)
     arr = _slice_volume(patch, where, slice_index)
     name = os.path.split(nii_file_path)[-1].split(".nii.gz")[0]
     np.save(os.path.join(save_dir, f"{name}_{where}_{slice_index}.npy"), arr)

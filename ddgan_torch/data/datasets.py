@@ -1,28 +1,32 @@
-"""LUNA16 and patch datasets (reference: datasets_prep/custom.py).
+"""LUNA16 / patch / folder datasets (reference: datasets_prep/custom.py,
+datasets_prep/heavy_custom.py, datasets_prep/datareader.py).
 
-The port's own copy of `ddgan_tpu/data/datasets.py`, limited to the
-datasets that decode with numpy: `Luna16Dataset` (NIfTI volumes through the
-pure-numpy reader) and `PositivePatchDataset` (`.npy` patches), and the
-slice-info cache. Items are the uint8 arrays that the JAX package wraps in
-PIL images, so `ToTensor` gives what it gives there. The JAX package's
-native C++ slice cache is not ported: every slice is read with numpy
-(ROADMAP.md Queue 1 item 13). The datasets that open or resize images with
-PIL raise.
+The port's own copy of `ddgan_tpu/data/datasets.py`, without PIL. Items are
+the uint8 arrays that the JAX package wraps in PIL images, so `ToTensor`
+gives what it gives there: image files are decoded by `utils.decode_images`
+(PNG, and baseline JPEG through `data/jpeg.py`) as PIL's `convert("RGB")`
+gives them, and `Luna16Dataset2`'s resize is PIL's bicubic
+(`data/resize.py`). LUNA16 volumes are read through the process-wide LRU of
+decoded volumes (`data/slicecache.py`), as the JAX package reads them
+through its native slice cache.
 
 All datasets implement the plain protocol `__len__` / `__getitem__ ->
-(image, label)`.
+(image, label)`; `DataReader` returns the image only.
 """
 
 from __future__ import annotations
 
+import csv
 import glob
 import os
 from typing import Callable
 
 import numpy as np
 
+from ..utils import decode_images
+from . import slicecache
 from .nifti import read_nifti
-from .transforms import needs_image_decoder
+from .resize import BICUBIC, resize
 
 
 def save_slice_info(data, txt_file_path: str = "./slices_info.txt") -> None:
@@ -110,7 +114,7 @@ class Luna16Dataset:
             raise FileNotFoundError("No volumes found in the specified directory.")
         for nii_path in nii_files:
             mask_path = os.path.join(self.mask_dir, os.path.split(nii_path)[-1])
-            handled = self._bounds_from_mask(np.nonzero(read_nifti(mask_path)))
+            handled = self._bounds_from_mask(np.nonzero(slicecache.volume(mask_path)))
             if handled is None:
                 continue
             for axis, rng in zip(("x", "y", "z"), handled):
@@ -155,21 +159,14 @@ class Luna16Dataset:
     # -- access --------------------------------------------------------------
     @staticmethod
     def _read_slice(path, axis, index):
-        """One 2-D slice; the whole volume is decoded per slice, as the
-        reference does (custom.py:190)."""
-        patch = read_nifti(path)
-        if index < 0 or index >= patch.shape["xyz".index(axis)]:
-            raise IndexError(f"Slice index {index} out of bounds")
-        if axis == "x":
-            return patch[index, :, :]
-        if axis == "y":
-            return patch[:, index, :]
-        return patch[:, :, index]
+        """One 2-D slice, from the cache of decoded volumes (the reference
+        decodes the whole volume for each slice, custom.py:190)."""
+        return slicecache.read_slice(path, axis, index)
 
     def __getitem__(self, index):
         if self._3d:
             path, axis, group = self._3d_slices_info[index]
-            patch = read_nifti(path)
+            patch = slicecache.volume(path)
             lo, hi = group[0], group[-1]
             if axis == "x":
                 img = patch[lo:hi, :, :]
@@ -192,6 +189,46 @@ class Luna16Dataset:
         if self._3d:
             return len(self._3d_slices_info)
         return len(self.slices) if self.fast_memory else len(self.slice_info)
+
+
+class Luna16Dataset2(Luna16Dataset):
+    """2-D-only variant with hardcoded crop (40,60,220,200) → 64².
+
+    Reference: datasets_prep/custom.py:222-358 (orphan, kept for parity).
+    PIL's `.crop(box).resize((64, 64))` (`ddgan_tpu/data/datasets.py:251-252`):
+    the crop fills with zeros past the slice's edge, and the resize takes
+    PIL's default filter for an "L" image, bicubic.
+    """
+
+    CROP_BOX = (40, 60, 220, 200)  # PIL's (left, upper, right, lower)
+    SIZE = (64, 64)
+
+    def __init__(self, *args, **kwargs):
+        kwargs.setdefault("_3d", False)
+        super().__init__(*args, **kwargs)
+
+    def __getitem__(self, index):
+        if self.fast_memory:
+            img = self.slices[index]
+        else:
+            path, axis, idx = self.slice_info[index]
+            img = self._read_slice(path, axis, idx)
+        img = resize(crop(np.asarray(img).astype(np.uint8), self.CROP_BOX), self.SIZE, BICUBIC)
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, 1
+
+
+def crop(img: np.ndarray, box) -> np.ndarray:
+    """PIL's `Image.crop((left, upper, right, lower))` of an (H, W[, C])
+    array: the region, with zeros where it runs past the image."""
+    left, upper, right, lower = box
+    out = np.zeros((lower - upper, right - left) + img.shape[2:], img.dtype)
+    h, w = img.shape[:2]
+    y0, y1, x0, x1 = max(upper, 0), min(lower, h), max(left, 0), min(right, w)
+    if y0 < y1 and x0 < x1:
+        out[y0 - upper:y1 - upper, x0 - left:x1 - left] = img[y0:y1, x0:x1]
+    return out
 
 
 class PositivePatchDataset:
@@ -235,24 +272,79 @@ class PositivePatchDataset:
         return img, 1
 
 
-class _NeedsDecoder:
-    """A JAX-package dataset that opens or resizes images with PIL."""
-
-    def __init__(self, *args, **kwargs):
-        raise needs_image_decoder(type(self).__name__)
+def _read_image(path) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_images([f.read()])[0]
 
 
-class Luna16Dataset2(_NeedsDecoder):
-    """The 2-D variant with a PIL crop and resize to 64² (custom.py:222-358)."""
+class DatasetCustom:
+    """Generic data_dir/{train,val,test}/*/*.jpg folder dataset. (custom.py:426-459)"""
+
+    def __init__(self, data_dir, class_="train", transform=None):
+        self.class_ = class_
+        self.transform = transform
+        data_path = os.path.join(data_dir, class_)
+        if not os.path.isdir(data_path):
+            raise FileNotFoundError(
+                "The class_ param should be one of [train, val, test]!"
+            )
+        self.images_all = sorted(glob.glob(data_path + "/*/*.jpg"))
+
+    def __getitem__(self, index):
+        image = _read_image(self.images_all[index])
+        if self.transform is not None:
+            image = self.transform(image)
+        return image, "Dumm"
+
+    def __len__(self):
+        return len(self.images_all)
 
 
-class DatasetCustom(_NeedsDecoder):
-    """data_dir/{train,val,test}/*/*.jpg through PIL (custom.py:426-459)."""
+class DataReader:
+    """Flat root/*/*.png reader returning image only. (datasets_prep/datareader.py)"""
+
+    def __init__(self, root, transform=None):
+        self.transform = transform
+        self.images = sorted(glob.glob(os.path.join(root, "*/*.png")))
+
+    def __getitem__(self, index):
+        img = _read_image(self.images[index])
+        if self.transform is not None:
+            img = self.transform(img)
+        return img
+
+    def __len__(self):
+        return len(self.images)
 
 
-class DataReader(_NeedsDecoder):
-    """root/*/*.png through PIL (datasets_prep/datareader.py)."""
+class HeavyDatasetCustom:
+    """CSV-manifest (Path, Class, ShapeZiro) volume reader with a
+    single-volume cache. (datasets_prep/heavy_custom.py:29-49)
 
+    The cache is one (path, volume) pair replaced as a whole, so the
+    loader's threads never pair a path with another path's volume.
+    """
 
-class HeavyDatasetCustom(_NeedsDecoder):
-    """CSV-manifest volume reader yielding PIL images (heavy_custom.py:29-49)."""
+    def __init__(self, manifest_csv, transform=None):
+        self.transform = transform
+        with open(manifest_csv) as f:
+            self.rows = list(csv.DictReader(f))
+        self._cache: tuple[str, np.ndarray] | None = None
+        self.index = []
+        for row in self.rows:
+            for k in range(int(row["ShapeZiro"])):
+                self.index.append((row["Path"], int(row["Class"]), k))
+
+    def __len__(self):
+        return len(self.index)
+
+    def __getitem__(self, i):
+        path, label, k = self.index[i]
+        cached = self._cache
+        if cached is None or cached[0] != path:
+            cached = (path, read_nifti(path))
+            self._cache = cached
+        img = np.asarray(cached[1][k]).astype(np.uint8)
+        if self.transform is not None:
+            img = self.transform(img)
+        return img, label

@@ -1,18 +1,25 @@
 """Dataset selection from config, mirroring ddgan.py:222-240 plus the
 README recipes' datasets (cifar10 / stackmnist) — the port's own copy of
-`ddgan_tpu/data/factory.py`. The datasets of image files (custom, lsun,
-celeba_256) need an image decoder and raise (ROADMAP.md Queue 1 item 13)."""
+`ddgan_tpu/data/factory.py`. The LMDB datasets (lsun, celeba_256, celeba)
+need an LMDB reader and raise (ROADMAP.md Queue 1 item 13d)."""
 
 from __future__ import annotations
 
 from .cifar10 import CIFAR10
-from .datasets import Luna16Dataset, PositivePatchDataset
+from .datasets import DatasetCustom, Luna16Dataset, PositivePatchDataset
 from .loader import SyntheticDataset
 from .stackmnist import StackedMNIST, data_transforms_stacked_mnist
-from .transforms import build_transform, needs_image_decoder
+from .transforms import build_transform
 
-_IMAGE_FILE_DATASETS = {
-    "custom": "dataset 'custom' (JPEG folders)",
+def _needs_lmdb(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} needs an LMDB reader, which ddgan_torch does not have yet (ROADMAP.md Queue 1 "
+        "item 13d). Use custom, synthetic, cifar10, stackmnist, luna16 or posluna, or the JAX "
+        "package's train_ddgan.py."
+    )
+
+
+_LMDB_DATASETS = {
     "lsun": "dataset 'lsun' (LMDB of encoded images)",
     "celeba_256": "dataset 'celeba_256' (LMDB of encoded images)",
     "celeba": "dataset 'celeba' (LMDB of encoded images)",
@@ -23,10 +30,14 @@ def make_dataset(args):
     """Build the dataset named by args.dataset with the flag-driven
     transform pipeline. (ddgan.py:203-240)"""
     name = args.dataset
-    if name in _IMAGE_FILE_DATASETS:
-        raise needs_image_decoder(_IMAGE_FILE_DATASETS[name])
+    if name in _LMDB_DATASETS:
+        raise _needs_lmdb(_LMDB_DATASETS[name])
     transform = build_transform(args)
 
+    if name == "custom":
+        return DatasetCustom(
+            data_dir=args.data_dir, class_=args.mode, transform=transform
+        )
     if name == "posluna":
         return PositivePatchDataset(
             data_dir=args.data_dir,

@@ -2,14 +2,12 @@
 
 The port's own copy of `ddgan_tpu/data/transforms.py`, without PIL: the
 reference's conditional assembly from yes/no string flags
-(ddgan.py:203-219), ToTensor → Normalize(0.5, 0.5) → CenterCrop, each
-included when its flag is 'yes'. The datasets hand over the uint8 arrays
-that the JAX package wraps in PIL images, and each transform gives what the
-JAX one gives of that image. Output is float32 HWC; the train loop makes
-batches NCHW on the device.
-
-`do_resize` "yes" raises: the resize must match PIL's bilinear, which needs
-a decoder-grade reimplementation (ROADMAP.md Queue 1 item 13).
+(ddgan.py:203-219), Resize → ToTensor → Normalize(0.5, 0.5) → CenterCrop,
+each included when its flag is 'yes'. The datasets hand over the uint8
+arrays that the JAX package wraps in PIL images, and each transform gives
+what the JAX one gives of that image (`Resize` through the port's copy of
+PIL's bilinear, `data/resize.py`). Output is float32 HWC; the train loop
+makes batches NCHW on the device.
 """
 
 from __future__ import annotations
@@ -18,14 +16,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 
-
-def needs_image_decoder(what: str) -> NotImplementedError:
-    """The error for a dataset or transform that needs an image decoder."""
-    return NotImplementedError(
-        f"{what} needs an image decoder (PIL in the JAX package), which ddgan_torch does "
-        "not have yet (ROADMAP.md Queue 1 item 13). Use synthetic, cifar10, stackmnist, "
-        "luna16 or posluna, or the JAX package's train_ddgan.py."
-    )
+from .resize import BILINEAR, resize
 
 
 class Compose:
@@ -36,6 +27,21 @@ class Compose:
         for t in self.transforms:
             x = t(x)
         return x
+
+
+class Resize:
+    """torchvision Resize(int) semantics: smaller edge → size, bilinear."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        h, w = np.asarray(img).shape[:2]
+        if w <= h:
+            new_w, new_h = self.size, max(1, round(h * self.size / w))
+        else:
+            new_w, new_h = max(1, round(w * self.size / h)), self.size
+        return resize(img, (new_w, new_h), BILINEAR)
 
 
 class ToTensor:
@@ -86,9 +92,9 @@ class CenterCrop:
 
 def build_transform(args) -> Compose | None:
     """Assemble transforms from yes/no flags. (ddgan.py:203-219)"""
-    if getattr(args, "do_resize", "no").lower() == "yes":
-        raise needs_image_decoder("do_resize 'yes' (PIL's bilinear resize)")
     transform_list = []
+    if getattr(args, "do_resize", "no").lower() == "yes":
+        transform_list.append(Resize(args.image_size))
     if getattr(args, "to_tensor_transform", "no").lower() == "yes":
         transform_list.append(ToTensor())
     if getattr(args, "use_normalize", "no").lower() == "yes":

@@ -6,8 +6,9 @@ its eps-regularised `scipy.linalg.sqrtm` retry and its imaginary-component
 check) is the reference's, line for line. Features come from a pluggable
 `feature_fn(batch_nhwc_float01) -> (B, dims)`, by default the port's
 FID-InceptionV3 (`ddgan_torch.eval.inception`) on the GPU. Images are read
-with the port's PNG decoder; precomputed .npz / .npy statistics stand in
-for an image directory.
+with the port's decoders (`utils.decode_images`: PNG and baseline JPEG) and
+resized with its copy of PIL's bilinear (`data/resize.py`); precomputed
+.npz / .npy statistics stand in for an image directory.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Callable, Sequence
 import numpy as np
 from scipy import linalg
 
-from ..utils import decode_pngs
+from ..data.resize import BILINEAR, resize as resize_image
+from ..utils import decode_images
 
 IMAGE_EXTENSIONS = {"bmp", "jpg", "jpeg", "pgm", "png", "ppm", "tif", "tiff", "webp"}
 
@@ -33,18 +35,17 @@ def list_image_files(path: str | pathlib.Path) -> list[pathlib.Path]:
 
 def _load_images_01(paths: Sequence, resize: int = 0) -> list[np.ndarray]:
     """(H, W, 3) float32 in [0, 1] of each image file, decoded together
-    (8-bit PNG only; other formats raise NotImplementedError naming
-    ROADMAP.md Queue 1 item 13)."""
-    if resize > 0 and paths:
-        raise NotImplementedError(
-            "resize > 0 needs PIL's bilinear resize, which ddgan_torch does not have yet "
-            "(ROADMAP.md Queue 1 item 13); FID from the sampler CLI uses resize 0."
-        )
+    (`decode_images`; other formats raise NotImplementedError naming
+    ROADMAP.md Queue 1 item 13), each resized to resize² with PIL's
+    bilinear first when resize > 0 (`ddgan_tpu/eval/fid.py:31-37`)."""
     datas = []
     for path in paths:
         with open(path, "rb") as f:
             datas.append(f.read())
-    return [img.astype(np.float32) / 255.0 for img in decode_pngs(datas)]
+    images = decode_images(datas)
+    if resize > 0:
+        images = [resize_image(img, (resize, resize), BILINEAR) for img in images]
+    return [img.astype(np.float32) / 255.0 for img in images]
 
 
 def get_activations(

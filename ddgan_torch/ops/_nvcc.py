@@ -44,22 +44,34 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def build(source: str, verbose: bool = False) -> ctypes.CDLL:
-    """Compile `csrc/<source>` (if its library is not built yet) and load it.
-    With `verbose`, a compile prints what ptxas reports (registers, shared
-    memory, spills)."""
+def compile_and_load(source: str, compiler: str, flags: list, report: dict | None = None,
+                     verbose: bool = False) -> ctypes.CDLL:
+    """Compile `csrc/<source>` with `compiler` and `flags` into
+    `_build/lib<stem>_<hash>.so` unless that library exists, and load it.
+    The compiler's standard error is kept in `report[source]` (and printed
+    with `verbose`); a failed compile raises."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}) building {src}:\n{res.stderr}")
-        PTXAS[source] = res.stderr
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"{Path(compiler).name} failed ({res.returncode}) building "
+                               f"{src}:\n{res.stderr}")
+        if report is not None:
+            report[source] = res.stderr
         if verbose:
             print(res.stderr.strip())
         os.replace(tmp, lib_path)
     return ctypes.CDLL(str(lib_path))
+
+
+def build(source: str, verbose: bool = False) -> ctypes.CDLL:
+    """Compile `csrc/<source>` (if its library is not built yet) and load it.
+    With `verbose`, a compile prints what ptxas reports (registers, shared
+    memory, spills)."""
+    return compile_and_load(source, find_nvcc(), NVCC_FLAGS, PTXAS, verbose)

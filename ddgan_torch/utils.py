@@ -3,7 +3,8 @@ the subprocess runner of the PSO search.
 
 `save_image`, `to_range_0_1` and `run_bash_command` follow
 `ddgan_tpu/utils.py`; PNGs are encoded and decoded with the standard
-library (zlib) so the port needs no imaging package.
+library (zlib) and baseline JPEGs decoded by the port's own decoder
+(`data/jpeg.py`), so the port needs no imaging package.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 def _not_decodable(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: ddgan_torch reads 8-bit non-interlaced PNGs only; other images need an "
-        "image decoder (ROADMAP.md Queue 1 item 13)."
+        f"{what}: ddgan_torch reads 8-bit non-interlaced PNGs and baseline JPEGs only; other "
+        "images need an image decoder (ROADMAP.md Queue 1 item 13)."
     )
 
 
@@ -181,6 +182,29 @@ def decode_pngs(datas) -> list[np.ndarray]:
 def decode_png(data: bytes) -> np.ndarray:
     """The pixels of one PNG (see `decode_pngs`)."""
     return decode_pngs([data])[0]
+
+
+def decode_images(datas) -> list[np.ndarray]:
+    """(H, W, 3) uint8 pixels of each image file's bytes, as PIL's
+    `Image.open(f).convert("RGB")` gives them, the format told by its first
+    bytes: PNGs through `decode_pngs` (together), JPEGs through
+    `data.jpeg.decode_jpeg` (grey replicated to three channels). Any other
+    format raises NotImplementedError naming ROADMAP.md Queue 1 item 13."""
+    from .data.jpeg import SOI, decode_jpeg
+
+    datas = [bytes(d) for d in datas]
+    for d in datas:
+        if not (d.startswith(_PNG_SIGNATURE) or d.startswith(SOI)):
+            raise _not_decodable("an image that is neither PNG nor JPEG")
+    pngs = [i for i, d in enumerate(datas) if d.startswith(_PNG_SIGNATURE)]
+    out: list = [None] * len(datas)
+    for i, img in zip(pngs, decode_pngs([datas[i] for i in pngs])):
+        out[i] = img
+    for i, d in enumerate(datas):
+        if out[i] is None:
+            img = decode_jpeg(d)
+            out[i] = np.repeat(img[:, :, None], 3, axis=2) if img.ndim == 2 else img
+    return out
 
 
 def save_image(x: np.ndarray, path: str | Path, normalize: bool = False) -> None:

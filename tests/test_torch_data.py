@@ -4,17 +4,22 @@ read by both; every comparison is exact (`np.array_equal`, dtypes equal).
 
 The port hands over uint8 arrays where the JAX package hands over PIL
 images made from them, so an item is compared as `np.asarray` of the JAX
-item. The JAX package's LUNA16 reader is held on its pure-numpy path (its
-native slice cache is a C++ speed path the port does not have).
+item. The JAX package's LUNA16 reader is held on its pure-numpy path, and
+on its native slice cache where the port's cache of decoded volumes
+(`ddgan_torch.data.slicecache`) is held against it. Image files (JPEG,
+PNG) are written by PIL and read by both packages.
 """
 
+import csv
 import pickle
 import struct
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+from PIL import Image
 
 import ddgan_tpu.data as jdata
 from ddgan_tpu import native as jnative
@@ -329,20 +334,229 @@ def test_make_dataset_synthetic_matches():
 
 
 # ---------------------------------------------------------------- refusals
-@pytest.mark.parametrize("dataset", ["custom", "lsun", "celeba_256", "celeba"])
+@pytest.mark.parametrize("dataset", ["lsun", "celeba_256", "celeba"])
 def test_image_file_datasets_raise_naming_item_13(dataset):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13d"):
         tdata.make_dataset(Config(dataset=dataset))
 
 
-@pytest.mark.parametrize("cls", ["DatasetCustom", "DataReader", "HeavyDatasetCustom",
-                                 "Luna16Dataset2"])
-def test_pil_datasets_raise_naming_item_13(tmp_path, cls):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(tdata, cls)(str(tmp_path))
+# ---------------------------------------------------------------- image files
+def _smooth(rs, h, w, c):
+    yy, xx = np.mgrid[0:h, 0:w]
+    planes = [127 + 90 * np.sin(a * xx + p) * np.cos(b * yy) + rs.normal(0, 14, (h, w))
+              for a, b, p in rs.uniform(0.02, 0.25, (c, 3))]
+    return np.clip(np.stack(planes, -1), 0, 255).astype(np.uint8)
 
 
-def test_resize_raises_naming_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdata.build_transform(Config(do_resize="yes"))
+def _custom_folder(tmp_path, split="train"):
+    """data_dir/{split}/{class}/*.jpg: RGB at 4:2:0 and 4:4:4 and a grey
+    JPEG, of sizes that need a resize and a crop, and a PNG that the glob
+    leaves out."""
+    rs = np.random.RandomState(11)
+    for cls in ("cats", "dogs"):
+        folder = tmp_path / split / cls
+        folder.mkdir(parents=True)
+        for i, (h, w) in enumerate([(20, 26), (31, 17), (24, 24)]):
+            arr = _smooth(rs, h, w, 3)
+            im = Image.fromarray(arr[:, :, 0]) if i == 2 else Image.fromarray(arr)
+            im.save(folder / f"{i}.jpg", quality=90, subsampling=2 * (i % 2))
+        Image.fromarray(_smooth(rs, 8, 8, 3)).save(folder / "skip.png")
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("flags", [
+    {},
+    {"to_tensor_transform": "yes", "use_normalize": "yes", "CenterCrop": "yes"},
+    {"do_resize": "yes", "to_tensor_transform": "yes", "use_normalize": "yes",
+     "CenterCrop": "yes"},
+    {"do_resize": "yes"},
+], ids=["none", "tensor_norm_crop", "resize_tensor_norm_crop", "resize"])
+def test_make_dataset_custom_items_match(tmp_path, flags):
+    cfg = dict(dataset="custom", data_dir=_custom_folder(tmp_path), mode="train",
+               image_size=16, num_channels=3, to_tensor_transform="no", use_normalize="no",
+               CenterCrop="no")
+    cfg.update(flags)
+    jds, tds = jdata.make_dataset(JConfig(**cfg)), tdata.make_dataset(Config(**cfg))
+    assert isinstance(tds, tdata.DatasetCustom) and len(tds) == 6
+    assert tds.images_all == jds.images_all
+    _assert_items(jds, tds)
+    if flags.get("CenterCrop") == "yes":
+        assert tds[0][0].shape == (16, 16, 3) and tds[0][0].dtype == np.float32
+
+
+def test_dataset_custom_splits_and_missing_split(tmp_path):
+    root = _custom_folder(tmp_path, split="val")
+    jds, tds = _both("DatasetCustom", root, class_="val")
+    _assert_items(jds, tds)
+    for mod in (jdata, tdata):
+        with pytest.raises(FileNotFoundError, match="one of \\[train, val, test\\]"):
+            mod.DatasetCustom(root, class_="train")
+
+
+@pytest.mark.parametrize("with_transform", [False, True])
+def test_data_reader_items_match(tmp_path, with_transform):
+    rs = np.random.RandomState(2)
+    for cls, modes in (("a", ("RGB", "L")), ("b", ("RGBA", "P"))):
+        (tmp_path / cls).mkdir()
+        for mode in modes:
+            im = Image.fromarray(_smooth(rs, 13, 10, 3))
+            im = im.quantize(200) if mode == "P" else im.convert(mode)
+            im.save(tmp_path / cls / f"{mode}.png")
+    jt, tt = (_transform(to_tensor_transform="yes", num_channels=3, do_resize="yes")
+              if with_transform else (None, None))
+    jds = jdata.DataReader(str(tmp_path), transform=jt)
+    tds = tdata.DataReader(str(tmp_path), transform=tt)
+    assert len(tds) == len(jds) == 4
+    for i in range(4):
+        assert_same(tds[i], jds[i])
+
+
+@pytest.mark.parametrize("with_transform", [False, True])
+def test_heavy_dataset_items_match(tmp_path, with_transform):
+    """The CSV manifest: two volumes, their items in order and out of order
+    (the single-volume cache switches), and from threads."""
+    rs = np.random.RandomState(4)
+    rows = []
+    for i, shape in enumerate([(5, 9, 11), (3, 12, 10)]):
+        path = tmp_path / f"vol{i}.nii.gz"
+        jdata.write_nifti(path, rs.uniform(-40, 300, shape).astype(np.float32))
+        rows.append({"Path": str(path), "Class": str(i), "ShapeZiro": str(shape[0])})
+    manifest = tmp_path / "manifest.csv"
+    with open(manifest, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=["Path", "Class", "ShapeZiro"])
+        writer.writeheader()
+        writer.writerows(rows)
+    jt, tt = (_transform(to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes")
+              if with_transform else (None, None))
+    jds = jdata.HeavyDatasetCustom(str(manifest), transform=jt)
+    tds = tdata.HeavyDatasetCustom(str(manifest), transform=tt)
+    assert tds.index == jds.index and len(tds) == 8
+    _assert_items(jds, tds, [0, 6, 1, 7, 5, 2])
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        got = list(pool.map(lambda i: tds[i][0], [0, 5, 1, 6, 2, 7] * 4))
+    for i, g in zip([0, 5, 1, 6, 2, 7] * 4, got):
+        assert_same(g, np.asarray(jds[i][0]))
+
+
+@pytest.mark.parametrize("jax_path", ["numpy", "native"])
+@pytest.mark.parametrize("shape", [(230, 210, 6), (64, 70, 12)], ids=["partly_past", "small"])
+def test_luna16_dataset2_items_match(tmp_path, monkeypatch, jax_path, shape):
+    """Crop (40, 60, 220, 200) then PIL's bicubic to 64², on int16 CT values
+    (-1024..3071); the box runs past the smaller slices' edges."""
+    if jax_path == "numpy":
+        monkeypatch.setattr(jnative, "available", lambda: False)
+    else:
+        assert jnative.available()
+    rs = np.random.RandomState(sum(shape))
+    for sub in ("data", "masks"):
+        (tmp_path / sub).mkdir()
+    mask = np.zeros(shape, np.uint8)
+    mask[20:30, 30:40, 2:4] = 1
+    jdata.write_nifti(tmp_path / "data" / "c.nii.gz",
+                      rs.randint(-1024, 3072, shape).astype(np.int16))
+    jdata.write_nifti(tmp_path / "masks" / "c.nii.gz", mask)
+    monkeypatch.chdir(tmp_path)
+    jt, tt = _transform(to_tensor_transform="yes", use_normalize="yes")
+    jds, tds = _both("Luna16Dataset2", str(tmp_path / "data"), str(tmp_path / "masks"),
+                     bound_exp_lim=1)
+    jds.transform, tds.transform = jt, tt
+    assert tds.slice_info == jds.slice_info and len(tds) == 4
+    _assert_items(jds, tds)
+    assert tds[0][0].shape == (64, 64, 1)
+
+
+@pytest.mark.parametrize("shape", [(10, 12), (12, 10), (10, 12, 3), (6, 5, 3), (1, 7), (8, 8)])
+def test_resize_transform_matches(shape):
+    """`Resize(8)`: the smaller edge to 8 with Python's round, then PIL's
+    bilinear (`ddgan_tpu/data/transforms.py:27-39`)."""
+    from ddgan_tpu.data import transforms as jt
+
+    from ddgan_torch.data import transforms as tt
+
+    arr = np.random.RandomState(sum(shape)).randint(0, 256, shape).astype(np.uint8)
+    assert_same(tt.Resize(8)(arr), jt.Resize(8)(Image.fromarray(arr)))
     assert tdata.build_transform(Config(to_tensor_transform="no")) is None
+    pipeline = tdata.build_transform(Config(do_resize="yes", image_size=8,
+                                            to_tensor_transform="no", use_normalize="no",
+                                            CenterCrop="no"))
+    assert [type(t) for t in pipeline.transforms] == [tt.Resize]
+
+
+# ---------------------------------------------------------------- volume cache
+def _ct_volume(path, shape, seed):
+    """int16 CT values, -1024..3071: astype(np.uint8) wraps them."""
+    vol = np.random.RandomState(seed).randint(-1024, 3072, shape).astype(np.int16)
+    jdata.write_nifti(path, vol)
+    return vol
+
+
+def test_slice_cache_equals_the_uncached_reader(tmp_path):
+    from ddgan_torch.data import slicecache
+
+    paths = [tmp_path / f"v{i}.nii.gz" for i in range(3)]
+    for i, p in enumerate(paths):
+        _ct_volume(p, (9, 7, 5), seed=i)
+    cache = slicecache.VolumeCache(capacity=2)
+    for _ in range(2):
+        for p in paths:
+            vol = tdata.read_nifti(p)
+            got = cache.get(p)
+            assert_same(got, vol)
+            assert not got.flags.writeable
+    assert len(cache) == 2 and cache.decodes == 6 and cache.hits == 0  # LRU of 2 over 3
+    assert cache.get(paths[2]) is cache.get(paths[2]) and cache.hits == 2
+    for axis, n in zip("xyz", (9, 7, 5)):
+        for index in (0, n - 1):
+            got = slicecache.read_slice(paths[2], axis, index)
+            want = np.take(vol, index, axis="xyz".index(axis))
+            assert_same(got, want)
+            got[...] = 0  # a copy: the cached volume is not touched
+    assert_same(slicecache.volume(paths[2]), tdata.read_nifti(paths[2]))
+    with pytest.raises(IndexError):
+        slicecache.read_slice(paths[2], "z", 5)
+    # a rewritten file is decoded again
+    _ct_volume(paths[2], (9, 7, 6), seed=9)
+    assert slicecache.volume(paths[2]).shape == (9, 7, 6)
+    # no cache: every request decodes
+    none = slicecache.VolumeCache(capacity=0)
+    assert_same(none.get(paths[0]), none.get(paths[0]))
+    assert len(none) == 0 and none.decodes == 2
+
+
+def test_slice_cache_decodes_a_volume_once_across_threads(tmp_path):
+    from ddgan_torch.data import slicecache
+
+    path = tmp_path / "v.nii.gz"
+    _ct_volume(path, (16, 16, 16), seed=0)
+    calls = []
+
+    def slow_reader(p):
+        calls.append(p)
+        time.sleep(0.05)
+        return tdata.read_nifti(p)
+
+    cache = slicecache.VolumeCache(reader=slow_reader)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        vols = list(pool.map(lambda _: cache.get(path), range(16)))
+    assert len(calls) == 1 and all(v is vols[0] for v in vols)
+
+
+@pytest.mark.parametrize("axis", ["x", "y", "z"])
+def test_slice_cache_slices_equal_the_jax_native_module(tmp_path, axis):
+    """uint8 slices of an int16 volume of CT values: the port's (the cached
+    float64 volume, then astype(np.uint8)) equal both of the JAX package's
+    paths, the native C++ cache (float32, truncated to int64, wrapped) and
+    its numpy reader (astype(np.uint8), custom.py:200)."""
+    from ddgan_torch.data import slicecache
+
+    assert jnative.available()
+    path = str(tmp_path / "ct.nii.gz")
+    vol = _ct_volume(path, (12, 10, 8), seed=3)
+    n = vol.shape["xyz".index(axis)]
+    for index in range(n):
+        port = slicecache.read_slice(path, axis, index).astype(np.uint8)
+        native = jnative.read_slice_u8(path, axis, index)
+        numpy_path = np.take(vol, index, axis="xyz".index(axis))
+        assert_same(port, native)
+        assert_same(port, numpy_path.astype(np.float64).astype(np.uint8))
+    assert (vol < 0).any() and (vol > 255).any()

@@ -1,6 +1,7 @@
 """The port's evaluation (`ddgan_torch.eval`: FID, IS, the folder wrappers)
-and its PNG reader (`ddgan_torch.utils.decode_png{,s}`) against the JAX
-package's `ddgan_tpu.eval` and PIL, on the same numpy-seeded inputs.
+and its image readers (`ddgan_torch.utils.decode_png{,s}`,
+`decode_images` over PNG and JPEG) against the JAX package's
+`ddgan_tpu.eval` and PIL, on the same numpy-seeded inputs.
 
 The Fréchet distance must equal the JAX package's to 1e-10 relative on the
 same statistics, through its eps retry and its imaginary-component check;
@@ -24,7 +25,7 @@ from ddgan_tpu.eval import inception_score as jis
 from ddgan_tpu.eval import simple_metrics as jsimple
 
 from ddgan_torch.eval import fid, inception, inception_score, simple_metrics
-from ddgan_torch.utils import decode_png, decode_pngs, encode_png
+from ddgan_torch.utils import decode_images, decode_png, decode_pngs, encode_png
 
 from _torch_port import one_torch_thread  # noqa: F401
 
@@ -136,13 +137,12 @@ def test_decode_png_refuses_what_it_does_not_read(tmp_path):
     good = _png(pixels, 2, [1] * 4)
     with pytest.raises(ValueError, match="CRC"):
         decode_png(good[:40] + bytes([good[40] ^ 1]) + good[41:])
-    # an image directory with a JPEG in it, and a resize, raise the same
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a.jpg")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fid.get_activations(fid.list_image_files(tmp_path), lambda b: b.mean((1, 2)), dims=3)
-    (tmp_path / "b.png").write_bytes(good)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        fid.get_activations([tmp_path / "b.png"], lambda b: b.mean((1, 2)), dims=3, resize=8)
+    # the FID loader: a progressive JPEG, and a format it does not read
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a.jpg", progressive=True)
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "b.bmp")
+    for name in ("a.jpg", "b.bmp"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            fid.get_activations([tmp_path / name], lambda b: b.mean((1, 2)), dims=3)
 
 
 def test_decode_pngs_decodes_a_mixed_batch_as_pil_does():
@@ -187,6 +187,62 @@ def test_fid_loader_reads_pil_files_as_the_jax_package_does(tmp_path):
     got = fid._load_images_01(files)
     for f, img in zip(files, got):
         np.testing.assert_array_equal(img, jfid._load_image_01(f))
+
+
+def _image_folder(tmp_path, sizes) -> list:
+    """JPEGs (RGB at 4:2:0 and 4:4:4, grey) and PNGs (RGB, grey) written
+    by PIL, one of each kind at each (H, W)."""
+    rs = np.random.RandomState(len(sizes))
+    files = []
+    for k, (h, w) in enumerate(sizes):
+        arr = _smooth(rs, h, w, 3)
+        for name, im, save in (("jpg420", Image.fromarray(arr), dict(subsampling=2)),
+                               ("jpg444", Image.fromarray(arr), dict(subsampling=0)),
+                               ("jpgL", Image.fromarray(arr[:, :, 1]), {}),
+                               ("png", Image.fromarray(arr), {}),
+                               ("pngL", Image.fromarray(arr[:, :, 2]), {})):
+            ext = "png" if name.startswith("png") else "jpg"
+            files.append(tmp_path / f"{k}_{name}.{ext}")
+            im.save(files[-1], quality=92, **save)
+    return files
+
+
+def test_decode_images_reads_png_and_jpeg_as_pil_does(tmp_path):
+    files = _image_folder(tmp_path, [(9, 13), (32, 32), (1, 5)])
+    got = decode_images([f.read_bytes() for f in files])
+    for f, img in zip(files, got):
+        assert img.dtype == np.uint8 and img.ndim == 3
+        np.testing.assert_array_equal(img, np.asarray(Image.open(f).convert("RGB")), str(f))
+
+
+@pytest.mark.parametrize("resize", [8, 37])
+def test_fid_loader_resizes_as_the_jax_package_does(tmp_path, resize):
+    """`_load_images_01(paths, resize)`: PIL's bilinear to resize² of the RGB
+    image, then /255 (`ddgan_tpu/eval/fid.py:31-37`), exactly."""
+    files = _image_folder(tmp_path, [(9, 13), (40, 24), (64, 64)])
+    got = fid._load_images_01(files, resize=resize)
+    for f, img in zip(files, got):
+        assert img.shape == (resize, resize, 3)
+        np.testing.assert_array_equal(img, jfid._load_image_01(f, resize=resize))
+
+
+@pytest.mark.parametrize("resize", [0, 8])
+def test_fid_activations_over_a_jpeg_folder_equal_jax(tmp_path, resize):
+    """`get_activations` over a folder of JPEGs and PNGs, in batches that
+    mix them, with and without the resize (sizes differ only where it
+    resizes)."""
+    sizes = [(20, 20)] * 2 if resize == 0 else [(20, 20), (13, 31)]
+    _image_folder(tmp_path, sizes)
+    files = fid.list_image_files(tmp_path)
+    assert len(files) == 10 and {f.suffix for f in files} == {".jpg", ".png"}
+    proj = np.random.RandomState(6).randn(6, 5)
+
+    def feature_fn(b):
+        return np.concatenate([b.mean((1, 2)), b.std((1, 2))], 1) @ proj
+
+    got = fid.get_activations(files, feature_fn, batch_size=4, dims=5, resize=resize)
+    want = jfid.get_activations(files, feature_fn, 4, 5, resize=resize)
+    np.testing.assert_array_equal(got, want)
 
 
 # --------------------------------------------------------------------------

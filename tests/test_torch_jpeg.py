@@ -1,0 +1,135 @@
+"""The port's baseline JPEG decoder (`ddgan_torch.data.jpeg`, C++ built
+with the host compiler at first use) against PIL, bit for bit, on JPEGs
+that PIL writes into tmp_path: quality 50, 75, 95 and 100; 4:4:4, 4:2:2,
+4:2:0 and grey; sizes 1x1, 7x9, 17x33 and 255x257 (not multiples of the
+MCU); optimized Huffman tables; restart markers; 16-bit DQT tables. Files
+it does not read (progressive, CMYK, RGB-coded) raise NotImplementedError
+naming ROADMAP.md Queue 1 item 13; broken files raise ValueError.
+"""
+
+import io
+import struct
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from ddgan_torch.data.jpeg import decode_jpeg
+
+SIZES = [(1, 1), (7, 9), (17, 33), (255, 257)]  # (H, W)
+QUALITIES = [50, 75, 95, 100]
+LAYOUTS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "L": None}
+
+
+def smooth_field(rs, h: int, w: int, channels: int) -> np.ndarray:
+    """A seeded image: a smooth field per channel plus noise, as photographs
+    give a JPEG coder both flat blocks and busy ones."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    planes = []
+    for _ in range(channels):
+        a, b, phase = rs.uniform(0.02, 0.25, 3)
+        planes.append(127 + 90 * np.sin(a * xx + phase) * np.cos(b * yy)
+                      + rs.normal(0, 14, (h, w)))
+    return np.clip(np.stack(planes, -1), 0, 255).astype(np.uint8)
+
+
+def _jpeg(tmp_path, layout: str, h: int, w: int, seed: int, **save) -> bytes:
+    rs = np.random.RandomState(seed)
+    if layout == "L":
+        im = Image.fromarray(smooth_field(rs, h, w, 1)[:, :, 0])
+    else:
+        im = Image.fromarray(smooth_field(rs, h, w, 3))
+        save.setdefault("subsampling", LAYOUTS[layout])
+    path = tmp_path / f"{layout.replace(':', '')}_{h}x{w}.jpg"
+    im.save(path, "JPEG", **save)
+    return path.read_bytes()
+
+
+def _assert_pil(data: bytes) -> np.ndarray:
+    want = np.asarray(Image.open(io.BytesIO(data)))
+    got = decode_jpeg(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("quality", QUALITIES)
+@pytest.mark.parametrize("size", SIZES, ids=[f"{h}x{w}" for h, w in SIZES])
+def test_matrix_equals_pil(tmp_path, layout, quality, size):
+    data = _jpeg(tmp_path, layout, *size, seed=quality + size[1], quality=quality)
+    got = _assert_pil(data)
+    assert got.ndim == (2 if layout == "L" else 3)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("save", [dict(optimize=True), dict(restart_marker_blocks=1),
+                                  dict(restart_marker_rows=1)],
+                         ids=["optimize", "restart_blocks", "restart_rows"])
+def test_optimized_tables_and_restart_markers_equal_pil(tmp_path, layout, save):
+    data = _jpeg(tmp_path, layout, 37, 45, seed=3, quality=85, **save)
+    if "optimize" not in save:
+        assert data.count(b"\xff\xdd") == 1 and b"\xff\xd1" in data  # DRI, then RSTn
+    _assert_pil(data)
+
+
+def _dqt_16bit(data: bytes) -> bytes:
+    """The same file with each DQT table written at 16-bit precision."""
+    out, p = bytearray(data[:2]), 2
+    while data[p + 1] != 0xDA:  # up to the first scan
+        (length,) = struct.unpack(">H", data[p + 2:p + 4])
+        seg = data[p + 4:p + 2 + length]
+        if data[p + 1] == 0xDB:
+            body = bytearray()
+            for k in range(0, len(seg), 65):
+                assert seg[k] >> 4 == 0
+                body += bytes([0x10 | seg[k] & 15])
+                body += b"".join(struct.pack(">H", v) for v in seg[k + 1:k + 65])
+            out += b"\xff\xdb" + struct.pack(">H", len(body) + 2) + body
+        else:
+            out += data[p:p + 2 + length]
+        p += 2 + length
+    return bytes(out + data[p:])
+
+
+@pytest.mark.parametrize("layout", ["4:2:0", "L"])
+def test_16bit_quantization_tables_equal_pil(tmp_path, layout):
+    data = _jpeg(tmp_path, layout, 23, 31, seed=5, quality=60)
+    wide = _dqt_16bit(data)
+    assert len(wide) > len(data)
+    np.testing.assert_array_equal(_assert_pil(wide), decode_jpeg(data))
+
+
+@pytest.mark.parametrize("what, make", [
+    ("progressive", lambda im: (im, dict(progressive=True))),
+    ("progressive grey", lambda im: (im.convert("L"), dict(progressive=True))),
+    ("CMYK", lambda im: (im.convert("CMYK"), {})),
+    ("RGB-coded", lambda im: (im, dict(keep_rgb=True))),
+])
+def test_files_it_does_not_read_raise_naming_item_13(what, make):
+    im, save = make(Image.fromarray(smooth_field(np.random.RandomState(0), 16, 16, 3)))
+    buf = io.BytesIO()
+    im.save(buf, "JPEG", quality=80, **save)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        decode_jpeg(buf.getvalue())
+
+
+def test_broken_files_raise_value_error(tmp_path):
+    data = _jpeg(tmp_path, "4:2:0", 16, 16, seed=1, quality=80)
+    for broken in (b"", b"\xff\xd8\xff\xe0", data[:len(data) // 2], b"\x89PNG" + data[4:]):
+        with pytest.raises(ValueError, match="malformed JPEG"):
+            decode_jpeg(broken)
+
+
+def test_threads_decode_alike(tmp_path):
+    """The loader's prefetch threads call the decoder at once (ctypes
+    releases the GIL): every result equals the one-thread decode."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    datas = [_jpeg(tmp_path, layout, 40, 48, seed=i, quality=90)
+             for i, layout in enumerate(["4:2:0", "4:2:2", "L", "4:4:4"] * 4)]
+    want = [decode_jpeg(d) for d in datas]
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        got = list(pool.map(decode_jpeg, datas))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -1,6 +1,7 @@
 """Package rules of the port (`ddgan_torch`): it never imports JAX, the
-JAX package, PIL or msgpack (its flax reader is its own), scipy only for the
-FID's matrix square root, its entry points (the train CLIs among them) run on the
+JAX package, PIL or msgpack (its flax reader and its image readers are its
+own), scipy only for the FID's matrix square root, its JPEG decoder builds
+only into the git-ignored `ddgan_torch/_build/`, its entry points (the train CLIs among them) run on the
 GPU unless the CPU is asked for, its config schema is the JAX package's,
 and `chip_smoke.py` fails rather than reporting a result when it has no GPU
 or no checkout around it.
@@ -46,11 +47,16 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def test_sources_import_no_jax():
+    """No module of the package imports a FORBIDDEN root; chip_smoke.py may
+    import PIL alone of them, as the reference of its image phases (47-49)."""
     sources = _port_sources()
     assert len(sources) > 15
-    bad = {str(p.relative_to(ROOT)): sorted(_imported_roots(p) & set(FORBIDDEN))
+    bad = {str(p.relative_to(ROOT)): sorted(
+               _imported_roots(p) & (set(FORBIDDEN) - ({"PIL"} if p.name == "chip_smoke.py"
+                                                       else set())))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
+    assert "PIL" in _imported_roots(ROOT / "chip_smoke.py")
 
 
 def test_scipy_only_in_the_fid():
@@ -107,6 +113,63 @@ def test_library_layers_import_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout + res.stderr
+
+
+def test_image_file_modules_import_no_pil_or_jax():
+    """The image readers of the port, each alone: the resize, the JPEG
+    decoder's binding, the volume cache, the host build helper, the
+    datasets and the FID loader (their JAX counterparts import PIL)."""
+    mods = ["ddgan_torch.data.resize", "ddgan_torch.data.jpeg", "ddgan_torch.data.slicecache",
+            "ddgan_torch.ops._cxx", "ddgan_torch.utils", "ddgan_torch.data.datasets",
+            "ddgan_torch.data.factory", "ddgan_torch.eval.fid"]
+    code = (
+        "import importlib, sys\n"
+        f"for n in {mods!r}: importlib.import_module(n)\n"
+        "from ddgan_torch.utils import decode_images\n"
+        "from ddgan_torch.data.jpeg import decode_jpeg\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout + res.stderr
+    sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
+    assert {"ddgan_torch/data/resize.py", "ddgan_torch/data/jpeg.py",
+            "ddgan_torch/data/slicecache.py", "ddgan_torch/ops/_cxx.py"} <= sources
+
+
+def test_jpeg_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
+    """A copy of the package builds the decoder from its own source at first
+    use: the one file it adds is the library under ddgan_torch/_build/,
+    which .gitignore lists; a compiler that fails raises."""
+    pkg = tmp_path / "ddgan_torch"
+    shutil.copytree(ROOT / "ddgan_torch", pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    before = {p for p in tmp_path.rglob("*") if p.is_file()}
+    code = ("import numpy as np\n"
+            "from ddgan_torch.data.jpeg import decode_jpeg\n"
+            "try:\n"
+            "    decode_jpeg(b'\\xff\\xd8\\xff')\n"
+            "except ValueError as e:\n"
+            "    print('malformed:', e)\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CXX")}
+    env["PYTHONDONTWRITEBYTECODE"] = "1"
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "malformed" in res.stdout, res.stdout + res.stderr
+    added = {p for p in tmp_path.rglob("*") if p.is_file()} - before
+    assert len(added) == 1
+    (lib,) = added
+    assert lib.parent == pkg / "_build" and lib.name.startswith("libjpeg_decode_")
+    assert "ddgan_torch/_build/" in (ROOT / ".gitignore").read_text().split()
+    # a failed build raises, naming the compiler's error; nothing else is tried
+    lib.unlink()
+    env["CXX"] = "false"
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0 and "RuntimeError: false failed" in res.stderr, res.stderr
+    assert not list((pkg / "_build").iterdir())
 
 
 # modules of the JAX package's models/, nn/ and ops/ the port has no file
@@ -335,3 +398,38 @@ def test_chip_smoke_adam_ratio_bound_holds_and_is_reached(betas):
         v_w = sum((1 - b2) * b2 ** (t - k) * x * x for k, x in enumerate(worst, 1)) / (1 - b2 ** t)
         assert abs(m_w) / v_w ** 0.5 == pytest.approx(bound, rel=1e-12)
     assert cs.adam_ratio_bound(b1, b2, 1) == 1.0
+
+
+def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
+    """Phases 47-48's host code on the CPU: the JPEG matrix and the resize
+    cases against this machine's PIL, and the custom loader's batch 0
+    against the script's copy of the JAX transform arithmetic, which must
+    equal the JAX package's own items."""
+    import numpy as np
+    from PIL import Image
+
+    import ddgan_tpu.data as jdata
+
+    from ddgan_torch.data import make_dataset
+    from ddgan_torch.train.loop import build_loader
+
+    cs = _chip_smoke()
+    jpeg = cs.jpeg_against_pil(Image)
+    assert jpeg["exact"] == jpeg["files"] == 76
+    resize = cs.resize_against_pil(Image)
+    assert resize["exact"] == resize["cases"] == 171
+    cs.write_custom_jpegs(Image, tmp_path / "c", 6, 40, 36, seed=1)
+    kw = dict(dataset="custom", data_dir=str(tmp_path / "c"), mode="train", do_resize="yes",
+              to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes", image_size=32,
+              num_channels=3, batch_size=3)
+    cfg = Config(**kw)
+    ds = make_dataset(cfg)
+    loader = build_loader(cfg, ds, cfg.batch_size)
+    loader.set_epoch(0)
+    idx = loader._indices()[:3]
+    times, images = cs.loader_seconds(loader, 0, 2)
+    assert len(times) == 2 and images[0].shape == (3, 32, 32, 3)
+    want = cs.pil_reference_items(Image, [ds.images_all[i] for i in idx], 32)
+    np.testing.assert_array_equal(images[0], want)
+    jds = jdata.make_dataset(JConfig(**kw))
+    np.testing.assert_array_equal(np.stack([jds[int(i)][0] for i in idx]), want)

@@ -313,15 +313,57 @@ def test_nii_to_png_pixels_equal_the_jax_packages(volumes, tmp_path):
             np.testing.assert_array_equal(got[..., 0] if got.ndim == 3 else got, want)
 
 
-def test_nii_to_png_refuses_a_resize(volumes, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        converters.nii_to_png(volumes, save_dir=str(tmp_path / "r"), do_resize_to=(16, 16))
-    config = {"save_dir": str(tmp_path), "exp": "e", "image_size": 16,
-              "path_to_slices_info": str(tmp_path / "slices.txt"), "dataset": "synthetic",
-              "num_epoch": 1}
+@pytest.mark.parametrize("size", [(16, 16), (5, 9), (20, 3)])
+def test_nii_to_png_resized_pixels_equal_the_jax_packages(volumes, tmp_path, size):
+    """`do_resize_to` (width, height): PIL's default filter, bicubic, on
+    every slice, shrinking and enlarging (`ddgan_tpu/data/converters.py:37-38`)."""
+    dirs = {}
+    for name, mod in (("jax", jconverters), ("port", converters)):
+        dirs[name] = tmp_path / name
+        mod.nii_to_png(volumes, save_dir=str(dirs[name]), only_z=False, do_resize_to=size)
+    names = sorted(p.name for p in dirs["jax"].iterdir())
+    assert names == sorted(p.name for p in dirs["port"].iterdir()) and len(names) == 6
+    for n in names:
+        got = decode_pngs([(dirs["port"] / n).read_bytes()])[0][..., 0]
+        want = np.asarray(Image.open(dirs["jax"] / n))
+        assert want.shape == size[::-1]
+        np.testing.assert_array_equal(got, want)
+
+
+def test_compute_fid_on_a_slices_info_config_equals_the_jax_packages(volumes, tmp_path,
+                                                                      monkeypatch):
+    """`_compute_fid` of a config with a slices-info file: the real set at
+    image_size² that both packages write, and the score read back from the
+    FID file that the sampler CLI (here a stand-in) writes."""
+    from ddgan_tpu.pso import evaluate as jevaluate
+
     (tmp_path / "slices.txt").write_text("".join(f"{a}, {b}, {c}\n" for a, b, c in volumes))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        evaluate._compute_fid(config, 3, torch.device("cpu"))
+    commands = []
+
+    def fake_cli(command):
+        commands.append(command)
+        out = command.split("--fid_output_path ")[1].split()[0].strip("'")
+        Path(out).write_text("12.5\n")
+        return ""
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "saved_info").mkdir()
+    scores = {}
+    for name, mod, args in (("jax", jevaluate, ()), ("port", evaluate, (torch.device("cpu"),))):
+        monkeypatch.setattr(mod, "run_bash_command", fake_cli)
+        config = {"save_dir": str(tmp_path / name), "exp": "e", "image_size": 16,
+                  "path_to_slices_info": str(tmp_path / "slices.txt"), "dataset": "luna16",
+                  "num_epoch": 1}
+        scores[name] = mod._compute_fid(config, 3, *args)
+    assert scores == {"jax": 12.5, "port": 12.5}
+    assert "-m ddgan_torch.cli.test_cli" in commands[1] and "--compute_fid" in commands[1]
+    names = sorted(p.name for p in (tmp_path / "jax" / "real_images").iterdir())
+    assert len(names) == 4  # the z slices
+    for n in names:
+        got = decode_pngs([(tmp_path / "port" / "real_images" / n).read_bytes()])[0][..., 0]
+        want = np.asarray(Image.open(tmp_path / "jax" / "real_images" / n))
+        assert got.shape == (16, 16)
+        np.testing.assert_array_equal(got, want)
 
 
 def test_npy_converters_equal_the_jax_packages(volumes, tmp_path):

@@ -8,9 +8,10 @@ PyTorch built for CUDA. It drives the port's two sampler paths, its two
 train steps, its train loop through both train CLIs, its evaluation (FID
 through the sampler CLI, the Inception Score), the PSO optimizer, loop and
 hyperparameter search, the content.ckpt bridge, every generator option,
-the legacy layer library, data parallelism, with seeded weights, and
-the datasets of image files and LUNA16 volumes, and fails (non-zero exit)
-if any phase fails. Each phase prints its wall time.
+the legacy layer library, data parallelism, with seeded weights, the
+datasets of image files, LUNA16 volumes and LMDBs, remat and the sampler
+CLI over ranks, and fails (non-zero exit) if any phase fails. Each phase
+prints its wall time.
 
 The flagship CIFAR-10 T=4 sampler (NCSN++ nf 128, ch_mult 1 2 2 2, batch 64):
 
@@ -306,7 +307,47 @@ host:
      volumes and without it, in turns (cache, none, none, cache; the same
      batch from both), and `nii_to_png` with do_resize_to (64, 64) over the
      slices-info file, every PNG equal to PIL's bicubic of its slice;
- 50. print the result, a `{"kernels": [...]}` line (the forward entries and
+
+LMDB datasets, remat and the sampler CLI over ranks (`ddgan_torch.data.lmdb`,
+`data.lmdb_datasets`, `models.ncsnpp`'s use_remat, `cli.test_cli`). The
+LMDB files come from the tests' writer (`tests/_torch_lmdb.py`, loaded by
+path): no `lmdb` package is needed, and where one imports it is the
+reference too:
+
+ 50. the LMDB reader on this host: the writer's files (depth >= 3, inline
+     values and overflow runs on both sides of LMDB's nodemax, the newer
+     of two meta pages, an empty database), every key read back and the
+     cursor in key order; ms per get over 20,000 random keys of 126,227
+     (LSUN church_outdoor train's size, 2,048-byte values on overflow
+     pages); both directions against the `lmdb` package if it imports;
+ 51. the LSUN Church Outdoor 256 recipe (`tools/bench_extra.py:192-206`:
+     the 256² network, DiscriminatorLarge, T=4, r1_gamma 1, bf16, batch
+     8) through `main_cli --dataset lsun --data_dir` on a
+     church_outdoor_train_lmdb of 64 seeded 341 x 256 JPEGs (q95, PIL)
+     under 40-hex-character keys, with do_resize, ToTensor, Normalize and
+     CenterCrop (256²) and the port's "auto" remat: epochs 0 and 1 of 4
+     steps, K1 and K2 by role as the formulas with the recompute term of
+     the remat "auto" picks, the sampler CLI at 256², T=4; the key cache
+     written in epoch 0 and read, not rebuilt, by a --resume for epoch 2;
+     batch 0 of the loader against PIL + the JAX transform arithmetic
+     (<= 1e-6) and the loader's seconds a batch beside the bare step;
+ 52. celeba_256 through `make_dataset` on a train.lmdb of 27,000 keys "0"
+     .. "26999" whose values cycle over 64 seeded 64² JPEGs: len 27000,
+     items 0, 9, 10, 13500 and 26999 (resized to 256²) against PIL + the
+     JAX arithmetic (<= 1e-6), ms an item; a raw-mode LMDB of 8 entries;
+ 53. the lsun256 bf16 step at batch 8 with remat off, "full" and
+     "save-convs" from the same state and draws (an R1 step and one
+     without, cuDNN deterministic): G's gradients and weights, the EMA
+     and D equal bit for bit; launches by role (K2's recompute term under
+     "full", K1's under both) and under "save-convs" as many conv runs as
+     without remat; then nine R1-free steps of each in turns, ms and the
+     peak memory above the resident state;
+ 53b. `python -m ddgan_torch.cli.test_cli --num_process_per_node 2 --device
+     cuda:0` on the full-width flagship (saved with what_backend gloo): an
+     FID set of 1,024 at 64 a rank, every PNG equal to a one-process
+     emulation of the two ranks, the FID printed and written once after
+     the last PNG; plain sampling of 63 over the two ranks, the same;
+ 54. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path, the
      pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
      the `{"ok": true, ...}` line last.
@@ -325,6 +366,7 @@ import json
 import logging
 import math
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -416,7 +458,8 @@ def expected_g_fir(n_g: int, g_resample: int = 2, out_pyramid: bool = False,
 
 
 def expected_fir_calls(n_d: int, n_g: int, r1: bool, shared: bool, *, g_resample: int = 2,
-                       out_pyramid: bool = False, in_pyramid: bool = False) -> dict:
+                       out_pyramid: bool = False, in_pyramid: bool = False,
+                       remat: bool = False) -> dict:
     """FIR calls of one train step by pattern and role, for a discriminator
     with `n_d` downsampling blocks and a generator with `n_g` transitions
     each way (its FIR calls per forward as `expected_g_fir`). Each D forward
@@ -430,18 +473,37 @@ def expected_fir_calls(n_d: int, n_g: int, r1: bool, shared: bool, *, g_resample
     calls on a tensor that needs a gradient gets one backward call, which
     leaves out the input pyramid's down2x (it acts on x_{t+1}). The
     backward of down2x is an up2x call and the backward of up2x a down2x
-    call (`ddgan_torch/ops/fir2x.py`)."""
+    call (`ddgan_torch/ops/fir2x.py`). With `remat` (BigGAN resblocks
+    checkpointed, under either policy) G's backward recomputes each
+    resblock's forward, so the resblocks' FIR forwards run once more: the
+    recompute term, n_g · g_resample of each."""
+    if remat and g_resample == 1:
+        raise ValueError("a DDPM Upsample / Downsample is not a resblock: remat does not "
+                         "recompute its FIR call")
     per_d = 2 * n_d
     d_fwd = 3 + int(r1 and not shared)
     d_bwd = d_fwd + int(r1)
     g = expected_g_fir(n_g, g_resample, out_pyramid, in_pyramid)
     g_down_grad = n_g * g_resample  # the input pyramid's down2x needs no gradient
+    recompute = n_g * g_resample if remat else 0
     return {
-        "down2x": {"forward": d_fwd * per_d + 2 * g["down2x"], "backward": g["up2x"],
-                   "second_order": per_d if r1 else 0},
-        "up2x": {"forward": 2 * g["up2x"], "backward": d_bwd * per_d + g_down_grad,
-                 "second_order": 0},
+        "down2x": {"forward": d_fwd * per_d + 2 * g["down2x"] + recompute,
+                   "backward": g["up2x"], "second_order": per_d if r1 else 0},
+        "up2x": {"forward": 2 * g["up2x"] + recompute,
+                 "backward": d_bwd * per_d + g_down_grad, "second_order": 0},
     }
+
+
+# K2's calls a bf16 step of the 256² recipes by role (46 forward: 23 gated
+# convs in each of G's two forwards; 18 dx through the kernel, 5 through the
+# library), and with remat "full" the recompute term: G's backward runs each
+# resblock's forward again, and every gated conv sits in a resblock
+K2_PER_STEP_256 = {"forward": 46, "dx": 18, "dx_library": 5}
+
+
+def expected_k2_per_step(remat_policy: str | None) -> dict:
+    return {**K2_PER_STEP_256,
+            "forward": K2_PER_STEP_256["forward"] + (23 if remat_policy == "full" else 0)}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1558,10 +1620,14 @@ def loop_through_train_cli(cfg, bare: dict, fir2x, pair_conv, sample_launches: d
 
 
 def loop_through_main_cli(cfg, bare: dict | None, fir2x, pair_conv, k2_per_step: dict | None,
-                          sample_launches: dict, extra_argv: tuple = ()) -> dict:
+                          sample_launches: dict, extra_argv: tuple = (), g_fir: dict | None = None,
+                          after=None) -> dict:
     """`cfg` through `ddgan_torch.cli.main_cli` in this process (launches
-    counted; `extra_argv` the flags a user adds, as --data_dir), the checks
-    of `check_loop_run`, and the sampler CLI on the last netG_*.pth."""
+    counted; `extra_argv` the flags a user adds, as --data_dir; `g_fir` the
+    generator's FIR roles, as `check_loop_run` takes them), the checks of
+    `check_loop_run`, and the sampler CLI on the last netG_*.pth; then
+    `after(argv, exp)` in the run's directory, whose result is the output's
+    "after"."""
     from ddgan_torch.cli import main_cli
     from ddgan_torch.train import checkpoint as ckpt
 
@@ -1573,20 +1639,23 @@ def loop_through_main_cli(cfg, bare: dict | None, fir2x, pair_conv, k2_per_step:
         os.chdir(tmp)
         try:
             _reset(fir2x, pair_conv)
+            # main_cli writes its own defaults over the config: name each that matters
+            argv = ["--dataset", cfg.dataset, "--exp", cfg.exp, "--batch_size",
+                    str(cfg.batch_size), "--num_epoch", str(cfg.num_epoch), "--save_content",
+                    *extra_argv]
             with Tee() as tee, CheckpointIO(ckpt) as io_:
-                # main_cli writes its own defaults over the config: name each that matters
-                state = main_cli.main(["--dataset", cfg.dataset, "--exp", cfg.exp,
-                                       "--batch_size", str(cfg.batch_size), "--num_epoch",
-                                       str(cfg.num_epoch), "--save_content", *extra_argv])
+                state = main_cli.main(argv)
             n_steps = (cfg.num_epoch + 1) * cfg.limited_iter
-            calls = check_loop_run(cfg, exp, range(n_steps), fir2x, pair_conv, k2_per_step)
+            calls = check_loop_run(cfg, exp, range(n_steps), fir2x, pair_conv, k2_per_step,
+                                   g_fir)
             check(state.step == n_steps, f"main_cli run ended at step {state.step}")
             bares = {**({"bare": bare} if bare else {}), "bare_after": bare_step_ms(cfg, state)}
             n_png = sample_from_loop(cfg, tmp, fir2x, pair_conv, sample_launches)
+            after_out = after(argv, exp) if after is not None else None
         finally:
             os.chdir(cwd)
     out = {"steps": n_steps, "pngs": n_png, "launches": calls, "checkpoint_io": io_.summary(),
-           "bare_after": bares["bare_after"],
+           "bare_after": bares["bare_after"], **({"after": after_out} if after else {}),
            "epochs": loop_vs_bare(epoch_times(tee.text()), cfg.limited_iter, cfg.lazy_reg, bares,
                                   cfg.batch_size)}
     print(json.dumps({f"train_loop_{cfg.exp}": out}))
@@ -3885,6 +3954,503 @@ def luna16_run(Image, fir2x, pair_conv) -> dict:
             "loader_rounds": rounds, "nii_to_png_s": convert_s, "pngs_exact": len(slices)}
 
 
+# ---------------------------------------------------------------------------
+# LMDB datasets, remat and the sampler CLI over ranks (phases 50-53b)
+LMDB_GET_ENTRIES = 126_227  # LSUN church_outdoor train's entries
+LMDB_GET_VALUE = 2048  # bytes a value: on an overflow page, as every LSUN image is
+LMDB_GET_CALLS = 20_000
+LSUN_IMAGES = 64
+LSUN_W, LSUN_H = 341, 256  # LSUN's images have 256 on the short side
+LSUN_ITERS = 4  # steps an epoch (batch 8): epochs 0 and 1, R1 at step 0; epoch 2 resumed
+TRAIN_BATCH_LSUN = 8  # the LSUN Church 256 recipe's batch per GPU (tools/bench_extra.py:194)
+CELEBA_LMDB_ENTRIES = 27_000  # `num_samples('celeba', True)`
+CELEBA_JPEGS = 64
+CELEBA_ITEMS = [0, 9, 10, 13_500, 26_999]
+REMAT_TIMED_STEPS = 9
+RANKS = 2
+RANKS_FID_SAMPLES = 1024
+RANKS_PLAIN_BATCH = 63
+
+
+def lsun256_config(Config):
+    """The LSUN Church Outdoor 256 recipe of `tools/bench_extra.py:192-206`
+    (readme.md:39-46 of the reference): the CelebA-HQ 256 network, T=4,
+    r1_gamma 1, lazy_reg 10, ema 0.999, lr_d 1e-4, lr_g 1.6e-4, dropout 0,
+    bf16, batch 8 a GPU; weights random, use_remat the port's "auto"."""
+    return celeba256_config(Config).replace(
+        dataset="lsun", num_timesteps=4, batch_size=TRAIN_BATCH_LSUN, r1_gamma=1.0,
+        lr_d=1e-4, lr_g=1.6e-4)
+
+
+def tests_helper(name: str):
+    """A helper module of tests/ that imports torch, numpy and the standard
+    library only (the LMDB writer), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tests" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def jpeg_bytes(Image, arr: np.ndarray, quality: int = 95) -> bytes:
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="JPEG", quality=quality)
+    return buf.getvalue()
+
+
+def lmdb_on_host(writer) -> dict:
+    """The LMDB reader on this host: files from the tests' writer (depth >= 3,
+    inline values and overflow runs on both sides of LMDB's nodemax, the
+    newer of two meta pages, an empty database), every key read back and
+    the cursor in key order; ms per `get` at LSUN church train's 126,227
+    entries; then both directions against the `lmdb` package, if it
+    imports here."""
+    from ddgan_torch.data import lmdb
+
+    rs = np.random.RandomState(50)
+    nodemax = writer.nodemax(4096)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # 5-byte keys: a node of 8 + 5 + v bytes stays inline up to v = nodemax - 13
+        sizes = [0, 10, nodemax - 13, nodemax - 12, 5000]
+        items = {f"{i:05d}".encode(): rs.bytes(sizes[i % 5]) for i in range(200)}
+        info = writer.write_lmdb(tmp / "deep", items, max_keys=8, txnid=7,
+                                 older={b"stale": b"old"})
+        with lmdb.open(str(tmp / "deep")).begin() as txn:
+            keys = list(txn.cursor().iternext(keys=True, values=False))
+            check(info["depth"] >= 3 and info["overflow"] >= 80 and keys == sorted(items)
+                  and all(txn.get(k) == v for k, v in items.items())
+                  and txn.get(b"stale") is None and txn.stat()["entries"] == len(items),
+                  f"LMDB reader against the writer: {info}, {len(keys)} keys")
+        writer.write_lmdb(tmp / "empty", {})
+        with lmdb.open(str(tmp / "empty")).begin() as txn:
+            check(txn.stat()["entries"] == 0 and txn.get(b"0") is None
+                  and not list(txn.cursor().iternext(keys=True, values=False)), "empty LMDB")
+        out["writer_files"] = {"depth": info["depth"], "entries": len(items),
+                               "overflow_pages": info["overflow"]}
+
+        keys = [rs.bytes(20).hex().encode() for _ in range(LMDB_GET_ENTRIES)]
+        value = rs.bytes(LMDB_GET_VALUE)  # one value for every key: the walk is timed
+        t0 = time.perf_counter()
+        info = writer.write_lmdb(tmp / "church", dict.fromkeys(keys, value))
+        write_s = time.perf_counter() - t0
+        with lmdb.open(str(tmp / "church")).begin() as txn:
+            order = rs.permutation(LMDB_GET_ENTRIES)[:LMDB_GET_CALLS]
+            t0 = time.perf_counter()
+            got = [txn.get(keys[i]) for i in order]
+            get_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            walked = sum(1 for _ in txn.cursor().iternext(keys=True, values=False))
+            cursor_s = time.perf_counter() - t0
+        check(all(v == value for v in got) and walked == LMDB_GET_ENTRIES,
+              f"LMDB at {LMDB_GET_ENTRIES} entries: {walked} keys walked")
+        out["church_train_size"] = {
+            "entries": LMDB_GET_ENTRIES, "depth": info["depth"], "bytes": info["bytes"],
+            "write_s": write_s, "ms_per_get": 1e3 * get_s / LMDB_GET_CALLS,
+            "cursor_s": cursor_s}
+        print(f"LMDB reader: {LMDB_GET_ENTRIES} entries of {LMDB_GET_VALUE} bytes, depth "
+              f"{info['depth']}, {info['bytes']} bytes written in {write_s:.2f} s; "
+              f"{1e3 * get_s / LMDB_GET_CALLS:.4f} ms per get over {LMDB_GET_CALLS} random keys; "
+              f"the cursor over every key {cursor_s:.2f} s (this host's CPU)")
+        try:
+            import lmdb as real  # noqa: F401  (the reference, where installed)
+        except ImportError:
+            out["lmdb_package"] = "not installed: the reader is held against the writer only"
+        else:
+            small = dict(list(items.items())[:100])
+            env = real.open(str(tmp / "real"), map_size=1 << 28)
+            with env.begin(write=True) as txn:
+                for k, v in small.items():
+                    txn.put(k, v)
+            env.close()
+            with lmdb.open(str(tmp / "real")).begin() as txn:
+                check(list(txn.cursor().iternext(keys=True, values=False)) == sorted(small)
+                      and all(txn.get(k) == v for k, v in small.items()),
+                      "the reader on the lmdb package's file")
+            env = real.open(str(tmp / "deep"), readonly=True, lock=False)
+            with env.begin() as txn:
+                check(all(bytes(txn.get(k)) == v for k, v in items.items()),
+                      "the lmdb package on the writer's file")
+            out["lmdb_package"] = "both directions equal"
+        print(f"lmdb package: {out['lmdb_package']}")
+    return out
+
+
+def lsun_run(Image, writer, cfg, fir2x, pair_conv) -> dict:
+    """The LSUN Church Outdoor 256 recipe through `main_cli --dataset lsun
+    --data_dir` on a church_outdoor_train_lmdb written by the tests' writer:
+    64 seeded 341 x 256 toy JPEGs at q95 under 40-hex-character keys, with
+    do_resize, ToTensor, Normalize and CenterCrop (256²) and the port's
+    "auto" remat: epochs 0 and 1 of 4 steps (phase 28's checks, K1 and K2
+    by role with the recompute term of the remat that "auto" picks), the
+    sampler CLI at 256², T=4; the key cache written in epoch 0 and read, not
+    rebuilt, by a --resume for epoch 2; then batch 0 of the loop's loader
+    against PIL + the JAX transform arithmetic (<= 1e-6) and its seconds a
+    batch beside the bare step."""
+    from ddgan_torch.cli import main_cli
+    from ddgan_torch.data import lmdb, make_dataset
+    from ddgan_torch.models.ncsnpp import resolve_remat_policy, resolve_use_remat
+    from ddgan_torch.train.loop import build_loader
+
+    remat = resolve_use_remat(cfg)
+    policy = resolve_remat_policy(str(cfg.remat_policy)) if remat else None
+    g = expected_g_fir(len(cfg.ch_mult) - 1)
+    per_forward_k2 = sum(PAIR_CONVS.values())
+    sample_launches = {"down2x": cfg.num_timesteps * g["down2x"],
+                       "up2x": cfg.num_timesteps * g["up2x"],
+                       "pair_conv3x3": cfg.num_timesteps * per_forward_k2}
+    k2 = expected_k2_per_step(policy)
+    with tempfile.TemporaryDirectory() as data_tmp:
+        data = Path(data_tmp) / "lsun"
+        rs = np.random.RandomState(51)
+        t0 = time.perf_counter()
+        items = {}
+        for i in range(LSUN_IMAGES):
+            arr = (toy_image_wh(np.random.RandomState(51 * 7_000_003 + i), LSUN_W, LSUN_H)
+                   * 255).astype(np.uint8)
+            items[rs.bytes(20).hex().encode()] = jpeg_bytes(Image, arr)
+        root = data / "church_outdoor_train_lmdb"
+        info = writer.write_lmdb(root, items)
+        write_s = time.perf_counter() - t0
+        cache = root / ("_cache_" + "".join(c for c in str(root) if c.isascii() and c.isalnum()))
+        run_cfg = cfg.replace(data_dir=str(data), do_resize="yes", to_tensor_transform="yes",
+                              use_normalize="yes", CenterCrop="yes", exp="lsun256",
+                              limited_iter=LSUN_ITERS, num_epoch=1, save_ckpt_every=1)
+
+        def resume(argv, exp):
+            check(cache.is_file() and pickle.loads(cache.read_bytes()) == sorted(items),
+                  f"epoch 0 wrote no key cache {cache} of the LMDB's keys")
+            stamp = cache.stat().st_mtime_ns
+            walks = []
+            iternext = lmdb.Cursor.iternext
+            lmdb.Cursor.iternext = lambda self, *a, **k: walks.append(1) or iternext(self, *a, **k)
+            _reset(fir2x, pair_conv)
+            try:
+                at = argv.index("--num_epoch") + 1
+                with Tee():
+                    state = main_cli.main(argv[:at] + ["2"] + argv[at + 1:] + ["--resume"])
+            finally:
+                lmdb.Cursor.iternext = iternext
+            check(not walks and cache.stat().st_mtime_ns == stamp,
+                  f"the resumed run rebuilt the key cache ({len(walks)} cursor walks)")
+            calls = check_loop_run(run_cfg.replace(num_epoch=2), exp,
+                                   range(2 * LSUN_ITERS, 3 * LSUN_ITERS), fir2x, pair_conv, k2,
+                                   {"remat": remat})
+            check(state.step == 3 * LSUN_ITERS, f"resumed lsun run ended at step {state.step}")
+            return {"cache_bytes": cache.stat().st_size, "launches": calls}
+
+        run = loop_through_main_cli(run_cfg, None, fir2x, pair_conv, k2_per_step=k2,
+                                    sample_launches=sample_launches,
+                                    extra_argv=("--data_dir", str(data)),
+                                    g_fir={"remat": remat}, after=resume)
+        ds = make_dataset(run_cfg)
+        loader = build_loader(run_cfg, ds, run_cfg.batch_size)
+        loader.set_epoch(0)
+        keys = ds.dbs[0].keys
+        first = [io.BytesIO(items[keys[i]]) for i in loader._indices()[:run_cfg.batch_size]]
+        times, images = loader_seconds(loader, 0, len(loader))
+        want = pil_reference_items(Image, first, run_cfg.image_size)
+        err = float(np.abs(images[0] - want).max())
+        side = run_cfg.image_size
+        check(images[0].shape == (run_cfg.batch_size, side, side, 3) and err <= 1e-6,
+              f"lsun batch 0 {images[0].shape} against PIL and the JAX transforms: {err}")
+    s_per_batch = float(np.mean(times))
+    bare_ms = run["bare_after"]["plain_step"]
+    print(f"lsun256: {LSUN_IMAGES} JPEGs into an LMDB of {info['bytes']} bytes in {write_s:.2f} s; "
+          f"use_remat 'auto' -> {remat}; batch 0 against PIL + the JAX transforms max-abs "
+          f"{err!r}; loader {1e3 * s_per_batch:.1f} ms a batch of {run_cfg.batch_size} (LMDB get, "
+          f"decode, ToTensor, Normalize, crop; {len(times)} batches, one thread) beside the bare "
+          f"bf16 step {bare_ms:.1f} ms ({100 * 1e3 * s_per_batch / bare_ms:.1f}% of it); key cache "
+          f"{run['after']['cache_bytes']} bytes, read by the resume")
+    return {**run, "remat": remat, "lmdb_bytes": info["bytes"], "write_s": write_s,
+            "batch0_max_abs": err, "loader_s_per_batch": s_per_batch, "loader_batch_s": times,
+            "loader_share_of_bare_step": 1e3 * s_per_batch / bare_ms}
+
+
+def celeba_lmdb_run(Image, writer) -> dict:
+    """celeba_256 through `make_dataset`: train.lmdb of 27,000 keys "0" ..
+    "26999" whose values cycle over 64 seeded 64² toy JPEGs (q95), so that
+    len() = 27000 is real and any shuffled index resolves; items 0, 9, 10,
+    13500 and 26999 with do_resize (256²), ToTensor, Normalize and
+    CenterCrop against PIL + the JAX transform arithmetic (<= 1e-6), and
+    ms per item over 200 shuffled indices; then a raw-mode validation.lmdb
+    of 8 entries (32² RGB bytes) read the same way."""
+    from ddgan_torch.config import Config
+    from ddgan_torch.data import make_dataset
+    from ddgan_torch.data.lmdb_datasets import LMDBDataset
+    from ddgan_torch.data.transforms import build_transform
+
+    jpegs = [jpeg_bytes(Image, (toy_image_wh(np.random.RandomState(52 * 7_000_003 + i), 64, 64)
+                                * 255).astype(np.uint8)) for i in range(CELEBA_JPEGS)]
+    rs = np.random.RandomState(52)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        info = writer.write_lmdb(Path(tmp) / "train.lmdb",
+                                 {str(i).encode(): jpegs[i % CELEBA_JPEGS]
+                                  for i in range(CELEBA_LMDB_ENTRIES)})
+        write_s = time.perf_counter() - t0
+        cfg = Config(dataset="celeba_256", data_dir=tmp, image_size=256, num_channels=3,
+                     do_resize="yes", to_tensor_transform="yes", use_normalize="yes",
+                     CenterCrop="yes")
+        ds = make_dataset(cfg)
+        check(isinstance(ds, LMDBDataset) and len(ds) == CELEBA_LMDB_ENTRIES,
+              f"celeba_256 dataset {type(ds).__name__} of {len(ds)}")
+        got = np.stack([ds[i][0] for i in CELEBA_ITEMS])
+        want = pil_reference_items(Image, [io.BytesIO(jpegs[i % CELEBA_JPEGS])
+                                           for i in CELEBA_ITEMS], 256)
+        err = float(np.abs(got - want).max())
+        check(got.shape == (len(CELEBA_ITEMS), 256, 256, 3) and err <= 1e-6,
+              f"celeba_256 items {CELEBA_ITEMS} against PIL + the JAX transforms: {err}")
+        order = rs.permutation(CELEBA_LMDB_ENTRIES)[:200]
+        t0 = time.perf_counter()
+        for i in order:
+            ds[int(i)]
+        item_ms = 1e3 * (time.perf_counter() - t0) / len(order)
+        raw = [rs.randint(0, 256, (32, 32, 3)).astype(np.uint8) for _ in range(8)]
+        writer.write_lmdb(Path(tmp) / "validation.lmdb",
+                          {str(i).encode(): a.tobytes() for i, a in enumerate(raw)})
+        rds = LMDBDataset(tmp, name="celeba", train=False, transform=build_transform(
+            cfg.replace(image_size=32, do_resize="no")))
+        pngs = []
+        for a in raw:
+            buf = io.BytesIO()
+            Image.fromarray(a).save(buf, format="PNG")
+            pngs.append(io.BytesIO(buf.getvalue()))
+        raw_err = float(np.abs(np.stack([rds[i][0] for i in range(8)])
+                               - pil_reference_items(Image, pngs, 32)).max())
+        check(len(rds) == 3000 and raw_err == 0.0 and rds[3][1] == [0],
+              f"raw CelebA LMDB: len {len(rds)}, max-abs {raw_err}")
+    print(f"celeba_256 LMDB: {CELEBA_LMDB_ENTRIES} keys ({info['bytes']} bytes, depth "
+          f"{info['depth']}) written in {write_s:.2f} s; items {CELEBA_ITEMS} against PIL + the "
+          f"JAX transforms max-abs {err!r}; {item_ms:.2f} ms an item (get, decode, resize to "
+          f"256², transforms); raw mode max-abs {raw_err!r}")
+    return {"entries": CELEBA_LMDB_ENTRIES, "bytes": info["bytes"], "depth": info["depth"],
+            "write_s": write_s, "items_max_abs": err, "ms_per_item": item_ms,
+            "raw_max_abs": raw_err}
+
+
+REMAT_MODES = {"off": dict(use_remat="no"), "full": dict(use_remat="yes", remat_policy="full"),
+               "save-convs": dict(use_remat="yes", remat_policy="save-convs")}
+
+
+@contextlib.contextmanager
+def counting_convs():
+    """Counts of the convs of `nn/layers.py` that run (a conv output that
+    "save-convs" replays is not run)."""
+    from ddgan_torch.nn import layers
+
+    counts = {"convs": 0}
+    real = layers.conv_out
+
+    def counting(compute, *saved):
+        def run():
+            counts["convs"] += 1
+            return compute()
+        return real(run, *saved)
+
+    layers.conv_out = counting
+    try:
+        yield counts
+    finally:
+        layers.conv_out = real
+
+
+def remat_on_card(cfg, dev, fir2x, pair_conv) -> dict:
+    """The lsun256 bf16 step at batch 8 with remat off, "full" and
+    "save-convs": an R1 step and a step without from the same state and
+    draws, cuDNN deterministic: G's gradients and weights, the EMA and D's
+    weights equal to the remat-free run bit for bit; launches by role
+    (the recompute term under "full", K1's under both), and under
+    "save-convs" as many conv runs as without remat; then nine R1-free steps
+    of each in turns (the order rotating), ms and the peak memory above the
+    resident state."""
+    from ddgan_torch.models import NCSNpp, build_discriminator
+    from ddgan_torch.utils import randomize_parameters_
+
+    gen_sd = randomize_parameters_(NCSNpp.from_config(cfg.replace(use_remat="no")), 53).state_dict()
+    disc = build_discriminator(cfg)
+    disc.init_weights(torch.Generator().manual_seed(54))
+    disc_sd = disc.state_dict()
+    real = real_batch(cfg, cfg.batch_size, 53).to(dev)
+    n_g, n_d, shared = len(cfg.ch_mult) - 1, 6, cfg.image_size >= 256  # R1 shares D(x_t)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for mode, keys in REMAT_MODES.items():
+            state, step = build_trainer(cfg.replace(**keys), gen_sd, disc_sd, dev, "bfloat16")
+            rng = torch.Generator(device=dev).manual_seed(55)
+            per_step = []
+            for _ in range(2):  # R1 at step 0, none at step 1
+                _reset(fir2x, pair_conv)
+                with counting_convs() as convs:
+                    step(state, real, rng, cfg.lr_g, cfg.lr_d)
+                torch.cuda.synchronize()
+                per_step.append({**_calls(fir2x, pair_conv), **convs})
+            g_params = list(state.gen.named_parameters())
+            tensors = {**{f"G.{k}": p.detach().clone() for k, p in g_params},
+                       **{f"G.grad.{k}": p.grad.clone() for k, p in g_params},
+                       **{f"ema.{k}": v.clone() for k, v in state.ema_G.items()},
+                       **{f"D.{k}": p.detach().clone() for k, p in state.disc.named_parameters()}}
+            runs[mode] = {"tensors": tensors, "rng": rng.get_state(), "calls": per_step}
+            del state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
+    base = runs["off"]
+    out = {"calls": {m: r["calls"] for m, r in runs.items()}}
+    for mode in ("full", "save-convs"):
+        r = runs[mode]
+        diff = max(float((r["tensors"][k].float() - v.float()).abs().max())
+                   for k, v in base["tensors"].items())
+        same = all(torch.equal(r["tensors"][k], v) for k, v in base["tensors"].items())
+        check(same and torch.equal(r["rng"], base["rng"]),
+              f"remat {mode}: two steps apart from the remat-free run, max-abs {diff}")
+        out[f"{mode}_max_abs"] = diff
+        policy = "full" if mode == "full" else "save-convs"
+        for i, c in enumerate(r["calls"]):
+            want_fir = expected_fir_calls(n_d, n_g, i == 0, shared, remat=True)
+            check(c["fir"] == want_fir and c["pair_conv3x3"] == expected_k2_per_step(policy),
+                  f"remat {mode} step {i}: {c}, expected FIR {want_fir}, K2 "
+                  f"{expected_k2_per_step(policy)}")
+            off = base["calls"][i]
+            more = c["convs"] == off["convs"] if mode == "save-convs" else c["convs"] > off["convs"]
+            check(more,
+                  f"remat {mode} step {i}: {c['convs']} convs run against {off['convs']} off")
+    for i, c in enumerate(base["calls"]):
+        check(c["fir"] == expected_fir_calls(n_d, n_g, i == 0, shared)
+              and c["pair_conv3x3"] == expected_k2_per_step(None), f"remat off step {i}: {c}")
+    print(f"remat on the card: full and save-convs equal to off bit for bit after an R1 step and "
+          f"a step without (cuDNN deterministic); convs run a step off / full / save-convs: "
+          + " / ".join(str(runs[m]["calls"][1]["convs"]) for m in REMAT_MODES))
+    del runs
+
+    states = {m: build_trainer(cfg.replace(**k), gen_sd, disc_sd, dev, "bfloat16")
+              for m, k in REMAT_MODES.items()}
+    rngs = {m: torch.Generator(device=dev).manual_seed(56) for m in REMAT_MODES}
+    modes = list(REMAT_MODES)
+    times = {m: [] for m in modes}
+    peaks = {m: [] for m in modes}
+    for m in modes:  # warm-up: an R1-free step each
+        states[m][0].step = 1
+        states[m][1](states[m][0], real, rngs[m], cfg.lr_g, cfg.lr_d)
+    for i in range(REMAT_TIMED_STEPS):
+        for m in modes[i % 3:] + modes[:i % 3]:
+            state, step = states[m]
+            state.step = 1  # no R1
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            step(state, real, rngs[m], cfg.lr_g, cfg.lr_d)
+            torch.cuda.synchronize()
+            times[m].append(1e3 * (time.perf_counter() - t0))
+            peaks[m].append((torch.cuda.max_memory_allocated() - resident) / 1e9)
+    del states
+    torch.cuda.empty_cache()
+    out["ms"] = times
+    out["peak_above_resident_gb"] = {m: max(v) for m, v in peaks.items()}
+    for m in modes:
+        print(f"lsun256 bf16 step at batch {cfg.batch_size}, remat {m}: "
+              f"{np.median(times[m]):.3f} ms median ({min(times[m]):.3f}-{max(times[m]):.3f}, "
+              f"{REMAT_TIMED_STEPS} in turns), peak {out['peak_above_resident_gb'][m]:.3f} GB "
+              "above the resident state")
+    out["median_ms"] = {m: float(np.median(v)) for m, v in times.items()}
+    return out
+
+
+def sample_uint8(x: torch.Tensor) -> np.ndarray:
+    """Samples in [-1, 1] as the uint8 HWC pixels `utils.save_image` writes."""
+    x = ((x.float() + 1.0) / 2.0).permute(0, 2, 3, 1).cpu().numpy()
+    return np.clip(np.clip(x, 0.0, 1.0) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
+    """`python -m ddgan_torch.cli.test_cli --num_process_per_node 2 --device
+    cuda:0` (two gloo ranks sharing the card, as phase 46 runs them) on a
+    full-width flagship experiment whose saved args say 8 processes over
+    gloo: with --compute_fid, 1,024 samples at 64 a rank
+    against 1,024 seeded 32² PNGs (random Inception weights): every {i}.png
+    equal to a one-process emulation of the two ranks (rank r's generator
+    seeded with seed + r, calls in turn), the FID printed once and written
+    once after the last PNG; then plain sampling with batch 63 over the two
+    ranks: 63 PNGs, each equal to the emulation's."""
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.utils import decode_pngs
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, random_inception_env():
+        tmp = Path(tmp)
+        exp = tmp / "saved_info" / "dd_gan" / "cifar10" / "ranks"
+        exp.mkdir(parents=True)
+        # trained on 8 ranks over gloo: the sampler takes the backend, not the count
+        (exp / "content_args.json").write_text(json.dumps(
+            cfg.replace(exp="ranks", num_process_per_node=8, what_backend="gloo").to_dict()))
+        torch.save(gen_sd, exp / "netG_1.pth")
+        write_filtered_set(tmp / "real", RANKS_FID_SAMPLES, 32, seed=53)
+        # every rank on the one card (on the CPU when a rehearsal runs there)
+        device = "cuda:0" if dev.type == "cuda" else "cpu"
+        argv = ["--dataset", "cifar10", "--exp", "ranks", "--epoch_id", "1", "--seed", "0",
+                "--device", device, "--num_process_per_node", str(RANKS)]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
+        folder = tmp / "generated_samples" / "cifar10"
+        args = test_cli.build_parser().parse_args(argv)
+        ccfg = test_cli.load_config(exp, args)
+        net = test_cli.load_generator(exp, ccfg, 1, dev)
+
+        def emulate(per_rank: int, calls: int) -> np.ndarray:
+            # the ranks run with torch's default TF32 flags, not with this script's
+            tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+            try:
+                rngs = [torch.Generator(device=dev).manual_seed(r) for r in range(RANKS)]
+                samplers = [test_cli.make_sampler(ccfg, net, per_rank, dev, rng) for rng in rngs]
+                return np.concatenate([sample_uint8(s()) for _ in range(calls) for s in samplers])
+            finally:
+                torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+        for mode, extra, n, names in (
+                ("fid", ["--compute_fid", "--num_fid_samples", str(RANKS_FID_SAMPLES),
+                         "--batch_size", str(BATCH), "--real_img_dir", "real"],
+                 RANKS_FID_SAMPLES, "{}.png"),
+                ("plain", ["--batch_size", str(RANKS_PLAIN_BATCH)], RANKS_PLAIN_BATCH,
+                 "sample_{}.png")):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "ddgan_torch.cli.test_cli", *argv, *extra],
+                                 cwd=tmp, env=env, stdin=subprocess.DEVNULL, capture_output=True,
+                                 text=True, timeout=600)
+            run_s = time.perf_counter() - t0
+            check(res.returncode == 0, f"test_cli over {RANKS} ranks ({mode}) exited "
+                  f"{res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+            files = sorted(folder.glob(names.format("*")))
+            check(len(files) == n and {p.name for p in files} == {names.format(i)
+                                                                 for i in range(n)},
+                  f"test_cli over ranks ({mode}): {len(files)} files, expected {n}")
+            per_rank = BATCH if mode == "fid" else -(-n // RANKS)
+            want = emulate(per_rank, -(-n // (per_rank * RANKS)))
+            got = decode_pngs([(folder / names.format(i)).read_bytes() for i in range(n)])
+            bad = [i for i in range(n) if not np.array_equal(got[i], want[i])]
+            check(not bad, f"test_cli over ranks ({mode}): {len(bad)} PNGs differ from the "
+                  f"one-process emulation, first {bad[:5]}")
+            out[mode] = {"files": n, "s": run_s}
+            if mode == "fid":
+                fids = [ln for ln in res.stdout.splitlines() if ln.startswith("FID = ")]
+                score = tmp / "fid_score.txt"
+                check(len(fids) == 1 and score.is_file()
+                      and score.stat().st_mtime_ns >= max(p.stat().st_mtime_ns for p in files)
+                      and np.isfinite(float(score.read_text())),
+                      f"FID lines {fids}; fid_score.txt after the PNGs: {score.is_file()}")
+                out[mode]["fid"] = float(score.read_text())
+            print(f"test_cli over {RANKS} gloo ranks on the card ({mode}): {n} PNGs equal to the "
+                  f"one-process emulation, {run_s:.1f} s"
+                  + (f"; FID {out[mode]['fid']!r} printed and written once" if mode == "fid"
+                     else ""))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU", file=sys.stderr)
@@ -4537,7 +5103,32 @@ def main() -> int:
     train_paths["luna16_shipped_main_cli"] = image_files["luna16_shipped"]["launches"]
     torch.cuda.empty_cache()
 
-    phase("50 result")
+    phase("50 the LMDB reader on this host: the tests' writer's files, ms per get at LSUN "
+          "church train's size, the lmdb package where it imports")
+    lmdb_writer = tests_helper("_torch_lmdb")
+    lmdb_runs = {"reader": lmdb_on_host(lmdb_writer)}
+
+    phase("51 the LSUN Church Outdoor 256 recipe from an LMDB through main_cli at full width "
+          "(bf16, batch 8, T=4): two epochs, resumed, sampled at 256²")
+    cfg_lsun = lsun256_config(Config)
+    lmdb_runs["lsun256"] = lsun_run(Image, lmdb_writer, cfg_lsun, fir2x, pair_conv)
+    train_paths["lsun256_main_cli"] = lmdb_runs["lsun256"]["launches"]
+    train_paths["lsun256_main_cli_resumed"] = lmdb_runs["lsun256"]["after"]["launches"]
+    torch.cuda.empty_cache()
+
+    phase("52 celeba_256 from a 27,000-key LMDB through make_dataset; a raw-mode LMDB")
+    lmdb_runs["celeba_256"] = celeba_lmdb_run(Image, lmdb_writer)
+
+    phase("53 remat on the card: the lsun256 bf16 step at batch 8 off, full and save-convs, "
+          "bit for bit and timed in turns")
+    lmdb_runs["remat"] = remat_on_card(cfg_lsun, dev, fir2x, pair_conv)
+    torch.cuda.empty_cache()
+
+    phase("53b the sampler CLI over two gloo ranks sharing the card: an FID set of "
+          f"{RANKS_FID_SAMPLES} and plain sampling of {RANKS_PLAIN_BATCH}")
+    lmdb_runs["sampler_cli_ranks"] = sampler_cli_over_ranks(cfg, flag_sd, dev)
+
+    phase("54 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
                   "celeba256_inception_score": evals["inception_score"]["launches"],
@@ -4617,6 +5208,7 @@ def main() -> int:
         "families": {**families, "pyramid_sum_celeba256": pyramid256},
         "parallel": parallel,
         "image_files": image_files,
+        "lmdb_remat_ranks": lmdb_runs,
         "build_s": build_s,
         "phase_s": PHASE_S,
     }))

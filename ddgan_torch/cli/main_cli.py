@@ -54,5 +54,13 @@ def main(argv=None, config_dir="./configs", config_name="config.json"):
     return run(cfg, device)
 
 
+
+def entry() -> int:
+    """Console-script wrapper: main() returns the final train state for
+    programmatic callers, which `sys.exit` would print as an error."""
+    main()
+    return 0
+
+
 if __name__ == "__main__":
     main()

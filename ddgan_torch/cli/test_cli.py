@@ -20,6 +20,22 @@ from the directory that holds `saved_info/`; `--device cpu` (or
     batch loop `generate_samples`, then the FID against real_img_dir
     (FID-InceptionV3 pool3, 2048 dims, on the CLI's device) to
     fid_output_path.
+
+Over ranks, as the JAX CLI samples on every device of its mesh
+(`ddgan_tpu/cli/test_cli.py:103-125`): `--num_process_per_node R` (with
+`--num_proc_node`, `--node_rank` and `--master_address`, as the train CLIs
+take them) spawns R sampling processes through `parallel.launch`, one per
+GPU, on the backend that `parallel.resolve_backend` picks from the
+experiment's `what_backend` (gloo on the CPU). The rank count comes
+from the command line only, never from the experiment's saved training
+args. Rank r draws from one generator seeded with seed + r
+(`make_sampler`), so rank 0 of one process draws what the CLI always drew.
+With --compute_fid each rank samples `batch_size` a call, so a call yields
+batch_size · R samples; {i}.png is the i-th sample in (call, rank, row)
+order, written once, by the rank that drew it, and the FID is computed on
+rank 0 after every rank's files are on disk. Plain sampling sizes each
+rank's batch down to ceil(batch_size / R) and writes the first batch_size,
+sample_{i}.png in (rank, row) order.
 """
 
 from __future__ import annotations
@@ -59,7 +75,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; also $DDGAN_TORCH_DEVICE")
+    # the sampling ranks: command line only (never the saved training args)
+    p.add_argument("--num_process_per_node", type=int, default=1)
+    p.add_argument("--num_proc_node", type=int, default=1)
+    p.add_argument("--node_rank", type=int, default=0)
+    p.add_argument("--master_address", type=str, default="127.0.0.1")
     return p
+
+
+_RANK_FLAGS = ("num_process_per_node", "num_proc_node", "node_rank", "master_address")
 
 
 def load_config(exp_path: Path, args: argparse.Namespace) -> Config:
@@ -73,7 +97,8 @@ def load_config(exp_path: Path, args: argparse.Namespace) -> Config:
         saved = dict(content_args) if isinstance(content_args, dict) else dict(vars(content_args))
     else:
         raise FileNotFoundError(f"No training content found under {exp_path}")
-    saved.update({k: v for k, v in vars(args).items() if v is not None})
+    saved.update({k: v for k, v in vars(args).items()
+                  if v is not None and k not in _RANK_FLAGS})
     return Config.from_dict(saved)
 
 
@@ -133,18 +158,23 @@ def generate_samples(
     save_npy: bool = False,
     normalize: bool = False,
     tag: str = "",
+    rank: int = 0,
+    world: int = 1,
 ) -> int:
-    """Write `total` samples as {i}.png (and {i}.npy) under `save_dir`.
+    """Write this rank's share of `total` samples as {i}.png (and {i}.npy)
+    under `save_dir`: call k of `sample_batch` gives the `per_call` samples
+    from k·per_call·world + rank·per_call on, those below `total` kept (a
+    rank with none left in a call makes no call).
 
     Pipelined as the JAX package's FID loop (`ddgan_tpu/cli/test_cli.py:131-196`):
     batch k+1 is launched before batch k is handed to the encoders, whose
     copy to the host was queued right behind batch k; PNG/NPY encoding runs
     in two worker threads behind a bounded queue of 4 batches. Returns the
-    number of samples written.
+    number of samples this rank wrote.
     """
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    iters_needed = (total + per_call - 1) // per_call
+    iters_needed = (total + per_call * world - 1) // (per_call * world)
 
     def encode_batch(host_arr: np.ndarray, index0: int) -> None:
         for j, x in enumerate(host_arr):
@@ -167,16 +197,20 @@ def generate_samples(
 
     try:
         pending = None
-        index = 0
+        written = 0
         for i in range(iters_needed):
-            n = min(per_call, total - i * per_call)
+            index = (i * world + rank) * per_call
+            n = min(per_call, total - index)
+            if n <= 0:
+                break
             host, ready = _to_host_async(to_range_0_1(sample_batch()))
             if pending is not None:
                 submit_encode(pending)
             pending = (host, ready, n, index)
-            index += n
+            written += n
             if (i + 1) % max(1, iters_needed // 2) == 0:
-                print(f"Generated {index}/{total} samples{' for ' + tag if tag else ''}")
+                print(f"Generated {min(total, (i + 1) * per_call * world)}/{total} samples"
+                      f"{' for ' + tag if tag else ''}")
         if pending is not None:
             submit_encode(pending)
         for f in encode_futs:
@@ -184,29 +218,47 @@ def generate_samples(
     finally:
         # no worker keeps writing after an exception surfaces
         pool.shutdown(wait=True, cancel_futures=True)
-    return index
+    return written
 
 
-def sample_and_test(args: argparse.Namespace):
-    device = resolve_device(args.device)
-    if args.compute_fid and not os.path.exists(args.real_img_dir):
-        raise FileNotFoundError(f"Real image directory {args.real_img_dir} not found.")
+def rank_batch(batch_size: int, world: int, compute_fid: bool) -> int:
+    """Each rank's batch: `batch_size` for an FID set (a call yields
+    batch_size · world), else ceil(batch_size / world)
+    (`ddgan_tpu/cli/test_cli.py:115-120`)."""
+    return batch_size if compute_fid else max(1, -(-batch_size // world))
+
+
+def sample_rank(rank: int, local_rank: int, args: argparse.Namespace):
+    """The CLI on one rank of `args.world` (1: this process alone): sample,
+    write this rank's files and, with --compute_fid, the FID on rank 0 once
+    every rank's files are on disk. Returns the FID on rank 0 of an FID run,
+    else None."""
+    from ..parallel import default_group, rank_device
+
+    world = int(getattr(args, "world", 1))
+    group = default_group()
+    device = resolve_device(args.device) if group is None else rank_device(local_rank)
     exp_path = Path(f"./saved_info/dd_gan/{args.dataset}/{args.exp}")
     cfg = load_config(exp_path, args)
     net = load_generator(exp_path, cfg, int(args.epoch_id), device)
     batch_size = int(args.batch_size or cfg.batch_size)
-    rng = torch.Generator(device=device).manual_seed(int(args.seed))
-    sample = make_sampler(cfg, net, batch_size, device, rng)
+    per_rank = rank_batch(batch_size, world, bool(args.compute_fid))
+    rng = torch.Generator(device=device).manual_seed(int(args.seed) + rank)
+    sample = make_sampler(cfg, net, per_rank, device, rng)
 
     save_dir = Path(args.generated_samples_dir) / "generated_samples" / str(args.dataset)
     save_dir.mkdir(parents=True, exist_ok=True)
     if args.compute_fid:
+        generate_samples(sample, int(args.num_fid_samples), per_rank, save_dir,
+                         save_npy=bool(args.save_npy), normalize=bool(args.normalize),
+                         tag=str(args.exp), rank=rank, world=world)
+        if group is not None:
+            torch.distributed.barrier()  # every rank's files are written
+        if rank != 0:
+            return None
         from ..eval.fid import calculate_fid_given_paths
         from ..eval.inception import default_feature_fn
 
-        generate_samples(sample, int(args.num_fid_samples), batch_size, save_dir,
-                         save_npy=bool(args.save_npy), normalize=bool(args.normalize),
-                         tag=str(args.exp))
         fid = calculate_fid_given_paths(
             [str(save_dir), args.real_img_dir], batch_size=50, dims=2048,
             feature_fn=default_feature_fn(dims=2048, device=device))
@@ -220,19 +272,58 @@ def sample_and_test(args: argparse.Namespace):
             print(f"FID score saved to {args.fid_output_path}")
         return fid
     fake = to_range_0_1(sample()).permute(0, 2, 3, 1).float().cpu().numpy()
+    first = rank * per_rank
+    fake = fake[:max(0, batch_size - first)]
     if args.save_npy:
-        np.save("file.npy", fake.transpose(0, 3, 1, 2))
-        print("file.npy")
+        if group is not None:
+            parts = [None] * world
+            torch.distributed.all_gather_object(parts, fake)
+            fake = np.concatenate(parts)
+        if rank == 0:
+            np.save("file.npy", fake.transpose(0, 3, 1, 2))
+            print("file.npy")
     else:
         for i, x in enumerate(fake):
-            save_image(x, save_dir / f"sample_{i}.png", normalize=bool(args.normalize))
-        print(f"Sample images saved to {save_dir}")
+            save_image(x, save_dir / f"sample_{first + i}.png", normalize=bool(args.normalize))
+        if rank == 0:
+            print(f"Sample images saved to {save_dir}")
     return None
 
 
-def main(argv=None):
+def sample_and_test(args: argparse.Namespace, **launch_kw):
+    """The CLI: in this process, or over `num_proc_node · num_process_per_node`
+    ranks (`launch_kw`: `parallel.launch`'s keywords, such as `init_method`).
+    Returns the FID of an FID run (read back from fid_output_path after a
+    spawned run), else None."""
+    resolve_device(args.device)
+    if args.compute_fid and not os.path.exists(args.real_img_dir):
+        raise FileNotFoundError(f"Real image directory {args.real_img_dir} not found.")
+    args.world = int(args.num_proc_node) * int(args.num_process_per_node)
+    if args.world <= 1:
+        return sample_rank(0, 0, args)
+    from ..parallel import launch
+
+    exp_path = Path(f"./saved_info/dd_gan/{args.dataset}/{args.exp}")
+    args.what_backend = str(getattr(load_config(exp_path, args), "what_backend", "nccl"))
+    if args.device is not None:
+        launch_kw.setdefault("device", args.device)
+    launch(args, sample_rank, **launch_kw)
+    if args.compute_fid and args.fid_output_path and int(args.node_rank) == 0:
+        with open(args.fid_output_path) as f:
+            return float(f.read())
+    return None
+
+
+def main(argv=None, **launch_kw):
     args = build_parser().parse_args(argv)
-    return sample_and_test(args)
+    return sample_and_test(args, **launch_kw)
+
+
+def entry() -> int:
+    """Console-script wrapper: main() returns the FID (a float) for
+    programmatic callers; exit codes must stay 0-on-success."""
+    main()
+    return 0
 
 
 if __name__ == "__main__":

@@ -172,5 +172,13 @@ def main(argv=None, **launch_kw):
     return run(cfg, device, **launch_kw)
 
 
+
+def entry() -> int:
+    """Console-script wrapper: main() returns the final train state for
+    programmatic callers, which `sys.exit` would print as an error."""
+    main()
+    return 0
+
+
 if __name__ == "__main__":
     main()

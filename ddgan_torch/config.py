@@ -5,8 +5,9 @@ package). Reference: additionals/create_conf_default.py:17-101 (defaults),
 additionals/utilities.py:123-162 (JSON load/save, with the read-update-write
 semantics the train CLIs rely on).
 
-The perf keys `use_remat`, `remat_policy` and `s2d_conv` are accepted and
-have no effect; `r1_shared` selects the train step's R1 formulation, and
+The perf key `s2d_conv` is accepted and has no effect; `use_remat` and
+`remat_policy` checkpoint the generator's resblocks (`models/ncsnpp.py`,
+"auto" off in the port); `r1_shared` selects the train step's R1 formulation, and
 `optimizer_sharding` "zero1" shards the Adam moments over the ranks
 (`train/zero1.py`).
 """
@@ -60,9 +61,9 @@ class Config:
     compute_dtype: str = "float32"
     # perf/memory knobs of the JAX package (not in the reference schema).
     # Accepted so its config files load unchanged; none of them changes
-    # what the port's sampler computes.
-    use_remat: Any = "auto"  # "auto" = remat resblocks at image_size ≥ 256; yes/no force
-    remat_policy: str = "full"  # "full" | "save-convs" (measured null; kept as a knob)
+    # what the port computes.
+    use_remat: Any = "auto"  # "auto" = off in the port (slower on the H100); yes/no force
+    remat_policy: str = "full"  # "full" | "save-convs" (conv outputs kept, not recomputed)
     s2d_conv: str = "auto"  # width-s2d region closure: "auto" (on where eligible) | "off"
     r1_shared: str = "auto"  # shared-R1 vjp forward: "auto" (on at ≥256²) | "yes" | "no"
     optimizer_sharding: str = "replicated"  # "replicated" | "zero1" (ZeRO-1 sharded Adam moments)

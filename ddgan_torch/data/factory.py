@@ -1,38 +1,23 @@
 """Dataset selection from config, mirroring ddgan.py:222-240 plus the
-README recipes' datasets (cifar10 / stackmnist) — the port's own copy of
-`ddgan_tpu/data/factory.py`. The LMDB datasets (lsun, celeba_256, celeba)
-need an LMDB reader and raise (ROADMAP.md Queue 1 item 13d)."""
+README recipes' datasets (cifar10 / stackmnist / lsun / celeba_256) — the
+port's own copy of `ddgan_tpu/data/factory.py`. The LMDB datasets read
+their files with the port's own LMDB reader (`data/lmdb.py`)."""
 
 from __future__ import annotations
 
 from .cifar10 import CIFAR10
 from .datasets import DatasetCustom, Luna16Dataset, PositivePatchDataset
+from .lmdb_datasets import LMDBDataset, LSUN
 from .loader import SyntheticDataset
 from .stackmnist import StackedMNIST, data_transforms_stacked_mnist
 from .transforms import build_transform
-
-def _needs_lmdb(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs an LMDB reader, which ddgan_torch does not have yet (ROADMAP.md Queue 1 "
-        "item 13d). Use custom, synthetic, cifar10, stackmnist, luna16 or posluna, or the JAX "
-        "package's train_ddgan.py."
-    )
-
-
-_LMDB_DATASETS = {
-    "lsun": "dataset 'lsun' (LMDB of encoded images)",
-    "celeba_256": "dataset 'celeba_256' (LMDB of encoded images)",
-    "celeba": "dataset 'celeba' (LMDB of encoded images)",
-}
 
 
 def make_dataset(args):
     """Build the dataset named by args.dataset with the flag-driven
     transform pipeline. (ddgan.py:203-240)"""
-    name = args.dataset
-    if name in _LMDB_DATASETS:
-        raise _needs_lmdb(_LMDB_DATASETS[name])
     transform = build_transform(args)
+    name = args.dataset
 
     if name == "custom":
         return DatasetCustom(
@@ -65,6 +50,20 @@ def make_dataset(args):
         train_t, _ = data_transforms_stacked_mnist()
         return StackedMNIST(
             root=args.data_dir, train=True, transform=transform or train_t
+        )
+    if name == "lsun":
+        return LSUN(
+            root=args.data_dir,
+            classes=[getattr(args, "lsun_class", "church_outdoor_train")],
+            transform=transform,
+        )
+    if name in ("celeba_256", "celeba"):
+        return LMDBDataset(
+            root=args.data_dir,
+            name="celeba",
+            train=True,
+            transform=transform,
+            is_encoded=True,
         )
     if name == "synthetic":
         return SyntheticDataset(

@@ -13,9 +13,19 @@ cat}; embedding_type {positional, fourier}; FIR or naive resampling, with
 or without conv; time conditioning on or off; inputs in [-1, 1] or [0, 1]
 (`centered`); the tanh head on or off. The parameter-free pyramid
 resamplers of output_skip / input_skip sit outside `all_modules`, as in
-the JAX package. Its width-s2d closure and resblock remat are TPU
-measures and are not ported: `from_config` accepts their keys and ignores
-them.
+the JAX package. Its width-s2d closure is a TPU layout and is not ported:
+`from_config` accepts `s2d_conv` and ignores it.
+
+With `use_remat` every resblock call that records a graph runs under a
+non-reentrant `torch.utils.checkpoint` (the JAX package's `nn.remat` of
+each ResnetBlock, `ddgan_tpu/models/ncsnpp.py:246-272`): its activations
+are recomputed in the backward. remat_policy "full" recomputes the whole
+block; "save-convs" keeps the outputs of its 3x3 and 1x1 convs
+(`nn/layers.conv_out`, the JAX package's `conv_out` names) and recomputes
+the rest, so no conv, the gated conv kernel included, runs twice. The
+numbers are those of a run without remat, bit for bit: the dropout masks
+of the recompute come from the state the block's dropout generator had in
+its forward, and the generator is left where the forward left it.
 
 With embedding_type fourier the time embedding is taken of log(t), as in
 the JAX package and the reference, so the row of a batch at t = 0 is not
@@ -29,14 +39,18 @@ dropout masks come from the generator given to `set_dropout_generator`
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import Any, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from ..nn import blocks
-from ..nn.layers import Conv3x3, Dense, Linear, PixelNorm, default_init, get_timestep_embedding
+from ..nn.layers import (Conv3x3, ConvOutputs, Dense, Linear, PixelNorm, default_init,
+                         get_timestep_embedding, saving_conv_outputs)
 from .registry import register_model
 
 RESBLOCK_TYPES = ("ddpm", "biggan", "biggan_oneadagn")
@@ -49,6 +63,74 @@ COMBINE_METHODS = ("sum", "cat")
 def _check(name: str, value: str, allowed: tuple) -> None:
     if value not in allowed:
         raise ValueError(f"NCSNpp {name}={value!r} not recognized; expected one of {allowed}")
+
+
+REMAT_POLICIES = {"full": "full", "": "full", "save-convs": "save-convs",
+                  "save_convs": "save-convs", "convs": "save-convs"}
+REMAT_POLICY_ENV = "DDGAN_TPU_REMAT_POLICY"
+
+
+def resolve_use_remat(config: Any) -> bool:
+    """use_remat as `ddgan_tpu/models/ncsnpp.py:100-108` reads it: yes / true
+    / 1 (any case) or True turn it on; no, other strings or False keep it
+    off. "auto" (the default) is off in the port at every size: on the
+    H100 the recipe's bf16 step is slower with remat under either policy
+    (PERF.md §5, PR 12, the lsun256 step at batch 8). The JAX package's
+    "auto" turns it on at image_size >= 256, from a TPU measurement."""
+    raw = getattr(config, "use_remat", "auto")
+    if isinstance(raw, str):
+        s = raw.lower()
+        return False if s == "auto" else s in ("yes", "true", "1")
+    return bool(raw)
+
+
+def resolve_remat_policy(name: str) -> str:
+    """"full" or "save-convs": $DDGAN_TPU_REMAT_POLICY over `name`, as the JAX
+    package reads it (`ncsnpp.py:252-265`); anything else raises."""
+    pol = os.environ.get(REMAT_POLICY_ENV, name).lower()
+    if pol not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy={pol!r} not recognized (expected 'full' or 'save-convs')")
+    return REMAT_POLICIES[pol]
+
+
+class _RematContexts:
+    """The forward and recompute contexts of one checkpointed resblock call
+    (`torch.utils.checkpoint`'s `context_fn`): the recompute draws its
+    dropout masks from the generator states of the forward and puts the
+    generators back where they were; under "save-convs" the forward
+    records the conv outputs and the recompute replays them."""
+
+    def __init__(self, block: nn.Module, policy: str):
+        gens = {}
+        for m in block.modules():
+            if isinstance(m, blocks.Dropout) and m.training and m.p > 0 and m.generator is not None:
+                gens[id(m.generator)] = m.generator
+        self.gens = list(gens.values())
+        self.convs = ConvOutputs() if policy == "save-convs" else None
+        self.states: list = []
+
+    @contextlib.contextmanager
+    def forward(self):
+        self.states = [g.get_state() for g in self.gens]
+        with (saving_conv_outputs(self.convs, replay=False) if self.convs is not None
+              else contextlib.nullcontext()):
+            yield
+
+    @contextlib.contextmanager
+    def recompute(self):
+        now = [g.get_state() for g in self.gens]
+        for g, st in zip(self.gens, self.states):
+            g.set_state(st)
+        try:
+            with (saving_conv_outputs(self.convs, replay=True) if self.convs is not None
+                  else contextlib.nullcontext()):
+                yield
+        finally:
+            for g, st in zip(self.gens, now):
+                g.set_state(st)
+
+    def __call__(self):
+        return self.forward(), self.recompute()
 
 
 def resolve_compute_dtype(name: Any) -> torch.dtype | None:
@@ -91,9 +173,13 @@ class NCSNpp(nn.Module):
         n_mlp: int = 3,
         centered: bool = True,
         dtype: torch.dtype | None = None,
+        use_remat: bool = False,
+        remat_policy: str = "full",
         generator: torch.Generator | None = None,
     ):
         super().__init__()
+        self.use_remat = bool(use_remat)
+        self.remat_policy = resolve_remat_policy(remat_policy) if self.use_remat else None
         _check("resblock_type", resblock_type, RESBLOCK_TYPES)
         _check("progressive", progressive, PROGRESSIVE)
         _check("progressive_input", progressive_input, PROGRESSIVE_INPUT)
@@ -219,8 +305,9 @@ class NCSNpp(nn.Module):
 
     @classmethod
     def from_config(cls, config: Any, generator: torch.Generator | None = None) -> "NCSNpp":
-        """The generator of a config; its use_remat, remat_policy and s2d_conv
-        keys (TPU measures of the JAX package) are ignored."""
+        """The generator of a config: use_remat as `resolve_use_remat` reads
+        it, remat_policy as `resolve_remat_policy`; s2d_conv (a TPU layout of
+        the JAX package) is ignored."""
         return cls(
             nf=config.num_channels_dae,
             ch_mult=tuple(config.ch_mult),
@@ -246,6 +333,8 @@ class NCSNpp(nn.Module):
             n_mlp=config.n_mlp,
             centered=bool(getattr(config, "centered", True)),
             dtype=resolve_compute_dtype(getattr(config, "compute_dtype", "float32")),
+            use_remat=resolve_use_remat(config),
+            remat_policy=str(getattr(config, "remat_policy", "full")),
             generator=generator,
         )
 
@@ -262,10 +351,19 @@ class NCSNpp(nn.Module):
             if isinstance(m, blocks.Dropout):
                 m.generator = generator
 
+    def _resblock(self, m: nn.Module, h: torch.Tensor, temb, zemb) -> torch.Tensor:
+        """A ResnetBlock call, checkpointed under use_remat when it records
+        a graph."""
+        if not (self.use_remat and torch.is_grad_enabled()):
+            return m(h, temb, zemb)
+        return torch.utils.checkpoint.checkpoint(
+            m, h, temb, zemb, use_reentrant=False,
+            context_fn=_RematContexts(m, self.remat_policy))
+
     def _block(self, m: nn.Module, h: torch.Tensor, temb, zemb) -> torch.Tensor:
         if isinstance(m, (blocks.Upsample, blocks.Downsample)):  # ddpm resampling
             return m(h)
-        return m(h, temb, zemb)
+        return self._resblock(m, h, temb, zemb)
 
     def _skip_sum(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return blocks._rescale(a + b) if self.skip_rescale else a + b
@@ -296,7 +394,7 @@ class NCSNpp(nn.Module):
         num_resolutions = len(self.ch_mult)
         for i_level in range(num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = modules[m_idx](hs[-1], temb, zemb)
+                h = self._resblock(modules[m_idx], hs[-1], temb, zemb)
                 m_idx += 1
                 # resolution test on the W axis, as the JAX package's NHWC shape[2]
                 if h.shape[3] in self.attn_resolutions:
@@ -318,15 +416,15 @@ class NCSNpp(nn.Module):
                 hs.append(h)
 
         h = hs[-1]
-        h = modules[m_idx](h, temb, zemb)
+        h = self._resblock(modules[m_idx], h, temb, zemb)
         h = modules[m_idx + 1](h)
-        h = modules[m_idx + 2](h, temb, zemb)
+        h = self._resblock(modules[m_idx + 2], h, temb, zemb)
         m_idx += 3
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb, zemb)
+                h = self._resblock(modules[m_idx], torch.cat([h, hs.pop()], dim=1), temb, zemb)
                 m_idx += 1
             if h.shape[3] in self.attn_resolutions:
                 h = modules[m_idx](h)

@@ -15,11 +15,20 @@ Every layer takes a compute `dtype` (None or torch.bfloat16): its input and
 parameters are cast to it, while the parameters themselves stay float32.
 With dtype None the layer computes in the promoted type of its input and
 parameters, as flax does.
+
+The 3x3 and 1x1 convs hand their outputs to `conv_out`, the counterpart of
+the JAX package's `name_conv_out` tag (`ddgan_tpu/nn/layers.py:36`): under
+a resblock checkpointed with remat_policy "save-convs"
+(`models/ncsnpp.py`) it keeps each conv's output in the forward and gives
+it back in the recompute, so that no conv runs twice, the hand-written
+kernel's included.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable
 
 import torch
@@ -56,6 +65,69 @@ def dense_init(scale: float = 1.0) -> Initializer:
 
 def compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype) -> torch.dtype:
     return dtype if dtype is not None else torch.promote_types(x.dtype, param.dtype)
+
+
+class ConvOutputs:
+    """The conv outputs of one checkpointed call, in call order: appended by
+    the forward, handed back (and dropped) one by one by the recompute."""
+
+    def __init__(self):
+        self.outs: list = []
+        self.next = 0
+        self.replay = False
+
+
+_CONV_OUTPUTS = threading.local()  # the recompute runs on autograd's thread
+
+
+@contextlib.contextmanager
+def saving_conv_outputs(store: ConvOutputs, replay: bool):
+    """Within it, `conv_out` appends to `store` or, with `replay`, takes
+    from it."""
+    prev = getattr(_CONV_OUTPUTS, "store", None)
+    store.replay, store.next = replay, 0
+    _CONV_OUTPUTS.store = store
+    try:
+        yield store
+    finally:
+        _CONV_OUTPUTS.store = prev
+
+
+class _Output:
+    def __init__(self, y: torch.Tensor):
+        self.y = y
+
+
+class _SavedConvOutput(torch.autograd.Function):
+    """A conv's recorded output, saving what the conv saves (its input and
+    weight, in the order the conv saves them) so that a non-reentrant
+    checkpoint's recompute packs the tensors the original graph's conv node
+    unpacks. That graph does the backward: this node's never runs."""
+
+    @staticmethod
+    def forward(ctx, out, *saved):
+        ctx.save_for_backward(*saved)
+        return out.y
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("a recompute's saved conv output was differentiated; only the "
+                           "checkpointed forward's graph is")
+
+
+def conv_out(compute: Callable[[], torch.Tensor], *saved: torch.Tensor) -> torch.Tensor:
+    """`compute()`, the output of a conv that saves `saved` for its backward;
+    under `saving_conv_outputs` recorded, or replayed without computing."""
+    store = getattr(_CONV_OUTPUTS, "store", None)
+    if store is None:
+        return compute()
+    if store.replay:
+        y, store.outs[store.next] = store.outs[store.next], None
+        store.next += 1
+        return _SavedConvOutput.apply(_Output(y), *saved)
+    y = compute()
+    store.outs.append(y.detach())
+    return y
 
 
 def get_timestep_embedding(
@@ -129,7 +201,9 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(x, self.weight, self.dtype)
         b = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding, self.dilation)
+        xd, wd = x.to(dt), self.weight.to(dt)
+        return conv_out(lambda: F.conv2d(xd, wd, b, self.stride, self.padding, self.dilation),
+                        xd, wd)
 
 
 class Conv3x3(Conv2d):
@@ -157,7 +231,9 @@ class Conv3x3(Conv2d):
             and self.bias is not None
             and pair_conv.supported(x.shape, self.weight.shape, torch.bfloat16)
         ):
-            return pair_conv.pair_conv3x3(x.to(torch.bfloat16), self.weight, self.bias)
+            xb = x.to(torch.bfloat16)
+            return conv_out(lambda: pair_conv.pair_conv3x3(xb, self.weight, self.bias),
+                            xb, self.weight)
         return super().forward(x)
 
 

@@ -1,7 +1,8 @@
 """Image saving and reading, range mapping, random weights for checks, and
-the subprocess runner of the PSO search.
+the file and shell helpers of the reference's additionals/utilities.py.
 
-`save_image`, `to_range_0_1` and `run_bash_command` follow
+`save_image`, `to_range_0_1`, `copy_file`, `copy_directory`, `move_file`,
+`run_bash_command`, `find_python_command` and `install_package` follow
 `ddgan_tpu/utils.py`; PNGs are encoded and decoded with the standard
 library (zlib) and baseline JPEGs decoded by the port's own decoder
 (`data/jpeg.py`), so the port needs no imaging package.
@@ -10,8 +11,10 @@ library (zlib) and baseline JPEGs decoded by the port's own decoder
 from __future__ import annotations
 
 import math
+import shutil
 import struct
 import subprocess
+import sys
 import zlib
 from pathlib import Path
 
@@ -188,12 +191,18 @@ def decode_images(datas) -> list[np.ndarray]:
     """(H, W, 3) uint8 pixels of each image file's bytes, as PIL's
     `Image.open(f).convert("RGB")` gives them, the format told by its first
     bytes: PNGs through `decode_pngs` (together), JPEGs through
-    `data.jpeg.decode_jpeg` (grey replicated to three channels). Any other
-    format raises NotImplementedError naming ROADMAP.md Queue 1 item 13."""
+    `data.jpeg.decode_jpeg` (grey replicated to three channels). A WebP
+    file (RIFF....WEBP, the LSUN release's values) raises
+    NotImplementedError naming ROADMAP.md Queue 1 item 13e, any other format
+    naming item 13."""
     from .data.jpeg import SOI, decode_jpeg
 
     datas = [bytes(d) for d in datas]
     for d in datas:
+        if d[:4] == b"RIFF" and d[8:12] == b"WEBP":
+            raise NotImplementedError(
+                "a WebP image: ddgan_torch has no WebP decoder yet (ROADMAP.md Queue 1 item "
+                "13e); LSUN's LMDB values are WebP files. Re-encode them as JPEG or PNG.")
         if not (d.startswith(_PNG_SIGNATURE) or d.startswith(SOI)):
             raise _not_decodable("an image that is neither PNG nor JPEG")
     pngs = [i for i, d in enumerate(datas) if d.startswith(_PNG_SIGNATURE)]
@@ -230,6 +239,59 @@ def save_image(x: np.ndarray, path: str | Path, normalize: bool = False) -> None
 def to_range_0_1(x):
     """[-1,1] → [0,1] (test_ddgan.py:149)."""
     return (x + 1.0) / 2.0
+
+
+# ---- file/shell helpers (additionals/utilities.py:10-177, `ddgan_tpu/utils.py:42-108`)
+def copy_file(src, dst, replace=False, rename=None):
+    """Copy `src` to `dst` (named `rename` in dst's directory); an existing
+    target is kept unless `replace`. Returns the target's path."""
+    dst = Path(dst)
+    if rename:
+        dst = dst.parent / rename
+    if dst.exists() and not replace:
+        return str(dst)
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.copy2(src, dst)
+    return str(dst)
+
+
+def copy_directory(src, dst, replace=False, rename=None):
+    """Copy the tree `src` to `dst` as `copy_file` copies a file."""
+    dst = Path(dst)
+    if rename:
+        dst = dst.parent / rename
+    if dst.exists():
+        if not replace:
+            return str(dst)
+        shutil.rmtree(dst)
+    shutil.copytree(src, dst)
+    return str(dst)
+
+
+def move_file(src, dst, replace=False, rename=None):
+    """Move `src` to `dst` as `copy_file` copies it (an existing target kept
+    unless `replace`, and then `src` stays)."""
+    dst = Path(dst)
+    if rename:
+        dst = dst.parent / rename
+    if dst.exists() and not replace:
+        return str(dst)
+    dst.parent.mkdir(parents=True, exist_ok=True)
+    shutil.move(src, dst)
+    return str(dst)
+
+
+def find_python_command() -> str:
+    return sys.executable or "python"
+
+
+def install_package(package_name: str) -> None:
+    """Reference API (additionals/utilities.py:165-177). Installs nothing:
+    it prints what to do instead of running pip at run time."""
+    print(
+        f"install_package('{package_name}'): runtime pip installs are "
+        "disabled in this environment; add the package to the image instead."
+    )
 
 
 def run_bash_command(command: str) -> str:

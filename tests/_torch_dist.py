@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-rank tests (`tests/test_torch_parallel.py`,
-`tests/test_torch_zero1.py`), and `run_ranks`, which starts them.
+`tests/test_torch_zero1.py`, `tests/test_torch_test_cli_ranks.py`), and
+`run_ranks`, which starts them.
 
 `run_ranks` starts the ranks through the port's own `parallel.launch`
 (spawned interpreters on the CPU, gloo, a `file://` rendezvous in the run's
@@ -218,3 +219,24 @@ def _body(rank: int, local_rank: int, args) -> None:
         raise ValueError(f"unknown case {args.case!r}")
     torch.save(out, Path(args.directory) / f"out_{rank}.pt")
 
+
+
+def cli_rank_with_fid_recorder(rank: int, local_rank: int, args) -> None:
+    """`test_cli.sample_rank` with the FID replaced by a recorder: each call
+    appends (rank, the PNGs on disk at that moment) to `args.fid_log` and
+    returns 1.25, so that a test sees when and where the FID ran without
+    paying for Inception."""
+    import ddgan_torch.eval.fid as fid
+    import ddgan_torch.eval.inception as inception
+    from ddgan_torch.cli import test_cli
+
+    torch.set_num_threads(1)
+
+    def record(paths, **kw):
+        with open(args.fid_log, "a") as f:
+            f.write(f"{rank} {len(list(Path(paths[0]).glob('*.png')))}\n")
+        return 1.25
+
+    fid.calculate_fid_given_paths = record
+    inception.default_feature_fn = lambda **kw: None
+    test_cli.sample_rank(rank, local_rank, args)

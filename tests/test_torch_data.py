@@ -333,13 +333,6 @@ def test_make_dataset_synthetic_matches():
     _assert_items(jds, tds, [0, 255])
 
 
-# ---------------------------------------------------------------- refusals
-@pytest.mark.parametrize("dataset", ["lsun", "celeba_256", "celeba"])
-def test_image_file_datasets_raise_naming_item_13(dataset):
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        tdata.make_dataset(Config(dataset=dataset))
-
-
 # ---------------------------------------------------------------- image files
 def _smooth(rs, h, w, c):
     yy, xx = np.mgrid[0:h, 0:w]

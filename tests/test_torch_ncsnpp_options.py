@@ -204,12 +204,19 @@ def test_unknown_option_values_raise(key, value):
 
 
 def test_from_config_ignores_the_tpu_knobs():
-    cfg = tiny_config()
+    """use_remat and remat_policy change no parameter (tests/test_torch_remat.py
+    holds what they do); s2d_conv, a TPU layout, is still ignored."""
+    cfg = tiny_config(use_remat="no")
     a = NCSNpp.from_config(cfg, generator=torch.Generator().manual_seed(1))
-    b = NCSNpp.from_config(cfg.replace(use_remat="yes", remat_policy="save-convs",
-                                       s2d_conv="off"), generator=torch.Generator().manual_seed(1))
-    for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
-        assert torch.equal(va, vb), k
+    b = NCSNpp.from_config(cfg.replace(use_remat="yes", remat_policy="save-convs"),
+                           generator=torch.Generator().manual_seed(1))
+    c = NCSNpp.from_config(cfg.replace(s2d_conv="off"), generator=torch.Generator().manual_seed(1))
+    assert not a.use_remat and b.use_remat and b.remat_policy == "save-convs"
+    assert not c.use_remat and vars(c).keys() == vars(a).keys()
+    for other in (b, c):
+        assert a.state_dict().keys() == other.state_dict().keys()
+        for (k, va), vb in zip(a.state_dict().items(), other.state_dict().values()):
+            assert torch.equal(va, vb), k
 
 
 def test_fourier_w_is_drawn_from_the_generator():

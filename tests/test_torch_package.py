@@ -1,8 +1,10 @@
 """Package rules of the port (`ddgan_torch`): it never imports JAX, the
-JAX package, PIL or msgpack (its flax reader and its image readers are its
-own), scipy only for the FID's matrix square root, its JPEG decoder builds
-only into the git-ignored `ddgan_torch/_build/`, its entry points (the train CLIs among them) run on the
-GPU unless the CPU is asked for, its config schema is the JAX package's,
+JAX package, PIL, msgpack or lmdb (its flax reader, its image readers and
+its LMDB reader are its own), scipy only for the FID's matrix square root,
+its JPEG decoder builds only into the git-ignored `ddgan_torch/_build/`,
+its entry points (the train CLIs among them) run on the GPU unless the CPU
+is asked for, its config schema is the JAX package's, every module of the
+JAX package has its counterpart, its file helpers are the JAX package's,
 and `chip_smoke.py` fails rather than reporting a result when it has no GPU
 or no checkout around it.
 """
@@ -26,7 +28,7 @@ from ddgan_torch.config import Config
 from ddgan_torch.diffusion import schedules
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu", "PIL", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ddgan_tpu", "PIL", "msgpack", "lmdb")
 
 
 def _port_sources():
@@ -48,11 +50,13 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_sources_import_no_jax():
     """No module of the package imports a FORBIDDEN root; chip_smoke.py may
-    import PIL alone of them, as the reference of its image phases (47-49)."""
+    import PIL and lmdb alone of them, as the references of its image and
+    LMDB phases (47-52; lmdb where it is installed)."""
     sources = _port_sources()
     assert len(sources) > 15
+    references = {"PIL", "lmdb"}
     bad = {str(p.relative_to(ROOT)): sorted(
-               _imported_roots(p) & (set(FORBIDDEN) - ({"PIL"} if p.name == "chip_smoke.py"
+               _imported_roots(p) & (set(FORBIDDEN) - (references if p.name == "chip_smoke.py"
                                                        else set())))
            for p in sources}
     assert not {k: v for k, v in bad.items() if v}
@@ -172,26 +176,50 @@ def test_jpeg_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
     assert not list((pkg / "_build").iterdir())
 
 
-# modules of the JAX package's models/, nn/ and ops/ the port has no file
-# for: its Pallas sources (ported as CUDA in ddgan_torch/csrc/ behind
-# ops/fir2x.py and ops/pair_conv.py) and the width-s2d layout, a TPU measure
-NOT_MIRRORED = {"ops/experimental", "ops/s2d.py"}
+# what the JAX package has and the port has no file of that name for, each
+# with the port's counterpart
+NOT_MIRRORED = {
+    "ops/experimental": "the Pallas sources: CUDA in ddgan_torch/csrc/ behind ops/fir2x.py "
+                        "and ops/pair_conv.py",
+    "ops/s2d.py": "the width-s2d layout, a TPU measure of the same math (s2d_conv ignored)",
+    "native": "the C++ cache of decoded LUNA16 volumes: data/slicecache.py",
+    "_platform.py": "the JAX platform selection: _device.py",
+    "compat/torch_import.py": "the reference .pth importer and exporter: compat/weights.py",
+}
+COUNTERPARTS = {"ops/experimental": ["csrc", "ops/fir2x.py", "ops/pair_conv.py"],
+                "ops/s2d.py": [], "native": ["data/slicecache.py"], "_platform.py": ["_device.py"],
+                "compat/torch_import.py": ["compat/weights.py"]}
+
+
+def _package_names(pkg: str) -> set:
+    """Every module and subpackage of `pkg`, and those of its subpackages,
+    as paths relative to it (data files and build outputs apart)."""
+    out = set()
+    for p in (ROOT / pkg).iterdir():
+        if p.name in ("__pycache__", "_build"):
+            continue
+        if p.suffix == ".py" or p.is_dir():
+            out.add(p.name)
+        if p.is_dir() and (p / "__init__.py").is_file():
+            out.update(f"{p.name}/{q.name}" for q in p.iterdir()
+                       if q.name != "__pycache__" and (q.suffix == ".py" or q.is_dir()))
+    return out
 
 
 def test_models_nn_ops_mirror_the_jax_package():
-    """Every module of ddgan_tpu/{models,nn,ops} has its counterpart of the
-    same name in ddgan_torch, apart from NOT_MIRRORED."""
-    def names(pkg):
-        out = set()
-        for sub in ("models", "nn", "ops"):
-            for p in (ROOT / pkg / sub).iterdir():
-                if p.name != "__pycache__" and (p.suffix == ".py" or p.is_dir()):
-                    out.add(f"{sub}/{p.name}")
-        return out
-
-    missing = names("ddgan_tpu") - names("ddgan_torch") - NOT_MIRRORED
-    assert not missing
-    assert NOT_MIRRORED <= names("ddgan_tpu")
+    """Every module and subpackage of ddgan_tpu (cli, compat, data,
+    diffusion, eval, models, nn, ops, parallel, pso, train and the top
+    level) has its counterpart of the same name in ddgan_torch, apart from
+    NOT_MIRRORED, whose counterparts are there under their own names."""
+    jax_names, port_names = _package_names("ddgan_tpu"), _package_names("ddgan_torch")
+    assert {"cli", "compat", "data", "diffusion", "eval", "models", "nn", "ops", "parallel",
+            "pso", "train"} <= jax_names
+    missing = {n for n in jax_names - port_names
+               if not any(n == m or n.startswith(m + "/") for m in NOT_MIRRORED)}
+    assert missing == set()
+    assert set(NOT_MIRRORED) <= jax_names - port_names
+    for name, files in COUNTERPARTS.items():
+        assert all(f in port_names for f in files), name
 
 
 def test_parallel_and_train_mirror_the_jax_package():
@@ -433,3 +461,46 @@ def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
     np.testing.assert_array_equal(images[0], want)
     jds = jdata.make_dataset(JConfig(**kw))
     np.testing.assert_array_equal(np.stack([jds[int(i)][0] for i in idx]), want)
+
+
+def test_file_helpers_match_the_jax_package(tmp_path, capsys):
+    """copy_file, copy_directory, move_file (replace / keep / rename),
+    find_python_command and install_package, each on a temp tree of its
+    own, against `ddgan_tpu/utils.py:42-108`: the same returns and the same
+    files after each call."""
+    import ddgan_tpu.utils as jutils
+
+    from ddgan_torch import utils as tutils
+
+    def tree(root: Path) -> dict:
+        return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+                if p.is_file()}
+
+    def run(mod, root: Path) -> list:
+        (root / "src" / "sub").mkdir(parents=True)
+        (root / "src" / "a.txt").write_text("a")
+        (root / "src" / "sub" / "b.txt").write_text("b")
+        (root / "dst").mkdir()
+        (root / "dst" / "a.txt").write_text("old")
+        rel = lambda p: os.path.relpath(p, root)  # noqa: E731
+        out = [rel(mod.copy_file(root / "src" / "a.txt", root / "dst" / "a.txt")),
+               (root / "dst" / "a.txt").read_text(),
+               rel(mod.copy_file(root / "src" / "a.txt", root / "dst" / "a.txt", replace=True)),
+               rel(mod.copy_file(root / "src" / "a.txt", root / "new" / "x.txt", rename="c.txt")),
+               rel(mod.copy_directory(root / "src", root / "copy")),
+               rel(mod.copy_directory(root / "src", root / "copy")),
+               rel(mod.copy_directory(root / "dst", root / "copy", replace=True)),
+               rel(mod.copy_directory(root / "src", root / "x" / "y", rename="z")),
+               rel(mod.move_file(root / "src" / "a.txt", root / "dst" / "a.txt")),
+               rel(mod.move_file(root / "src" / "a.txt", root / "moved" / "m.txt")),
+               rel(mod.move_file(root / "dst" / "a.txt", root / "moved" / "m.txt",
+                                 replace=True, rename="n.txt")),
+               mod.find_python_command()]
+        mod.install_package("lmdb")
+        return out + [tree(root)]
+
+    want = run(jutils, tmp_path / "jax")
+    printed_jax = capsys.readouterr().out
+    got = run(tutils, tmp_path / "port")
+    assert got == want and got[-2] == sys.executable
+    assert capsys.readouterr().out == printed_jax and "lmdb" in printed_jax

@@ -342,9 +342,9 @@ reference too:
      "full", K1's under both) and under "save-convs" as many conv runs as
      without remat; then nine R1-free steps of each in turns, ms and the
      peak memory above the resident state;
- 53b. `python -m ddgan_torch.cli.test_cli --num_process_per_node 2 --device
-     cuda:0` on the full-width flagship (saved with what_backend gloo): an
-     FID set of 1,024 at 64 a rank, every PNG equal to a one-process
+ 53b. `test_cli.main` with `--num_process_per_node 2 --device cuda:0` (a
+     `file://` rendezvous) on the full-width flagship (saved with
+     what_backend gloo): an FID set of 1,024 at 64 a rank, every PNG equal to a one-process
      emulation of the two ranks, the FID printed and written once after
      the last PNG; plain sampling of 63 over the two ranks, the same;
  54. print the result, a `{"kernels": [...]}` line (the forward entries and
@@ -4235,26 +4235,38 @@ REMAT_MODES = {"off": dict(use_remat="no"), "full": dict(use_remat="yes", remat_
                "save-convs": dict(use_remat="yes", remat_policy="save-convs")}
 
 
+class _CountingCalls:
+    """`module` with its function `name` counted in `counts["convs"]`."""
+
+    def __init__(self, module, name: str, counts: dict):
+        self._module, self._name, self._counts = module, name, counts
+
+    def __getattr__(self, attr):
+        fn = getattr(self._module, attr)
+        if attr != self._name:
+            return fn
+
+        def counted(*args, **kwargs):
+            self._counts["convs"] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+
 @contextlib.contextmanager
 def counting_convs():
-    """Counts of the convs of `nn/layers.py` that run (a conv output that
+    """Counts of the convs of `nn/layers.py` that run, its calls of
+    `F.conv2d` and `pair_conv.pair_conv3x3` (a conv output that
     "save-convs" replays is not run)."""
     from ddgan_torch.nn import layers
 
     counts = {"convs": 0}
-    real = layers.conv_out
-
-    def counting(compute, *saved):
-        def run():
-            counts["convs"] += 1
-            return compute()
-        return real(run, *saved)
-
-    layers.conv_out = counting
+    real = layers.F, layers.pair_conv
+    layers.F = _CountingCalls(layers.F, "conv2d", counts)
+    layers.pair_conv = _CountingCalls(layers.pair_conv, "pair_conv3x3", counts)
     try:
         yield counts
     finally:
-        layers.conv_out = real
+        layers.F, layers.pair_conv = real
 
 
 def remat_on_card(cfg, dev, fir2x, pair_conv) -> dict:
@@ -4361,6 +4373,22 @@ def remat_on_card(cfg, dev, fir2x, pair_conv) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def stdout_to(path: Path):
+    """File descriptor 1, and so the output of the processes started within,
+    sent to `path`."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+
+
 def sample_uint8(x: torch.Tensor) -> np.ndarray:
     """Samples in [-1, 1] as the uint8 HWC pixels `utils.save_image` writes."""
     x = ((x.float() + 1.0) / 2.0).permute(0, 2, 3, 1).cpu().numpy()
@@ -4368,8 +4396,9 @@ def sample_uint8(x: torch.Tensor) -> np.ndarray:
 
 
 def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
-    """`python -m ddgan_torch.cli.test_cli --num_process_per_node 2 --device
-    cuda:0` (two gloo ranks sharing the card, as phase 46 runs them) on a
+    """`test_cli.main` with `--num_process_per_node 2 --device cuda:0` (two
+    gloo ranks sharing the card, spawned by `parallel.launch` and meeting
+    through a `file://` rendezvous, as phase 46 runs them) on a
     full-width flagship experiment whose saved args say 8 processes over
     gloo: with --compute_fid, 1,024 samples at 64 a rank
     against 1,024 seeded 32² PNGs (random Inception weights): every {i}.png
@@ -4377,6 +4406,8 @@ def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
     seeded with seed + r, calls in turn), the FID printed once and written
     once after the last PNG; then plain sampling with batch 63 over the two
     ranks: 63 PNGs, each equal to the emulation's."""
+    import datetime
+
     from ddgan_torch.cli import test_cli
     from ddgan_torch.utils import decode_pngs
 
@@ -4394,8 +4425,6 @@ def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
         device = "cuda:0" if dev.type == "cuda" else "cpu"
         argv = ["--dataset", "cifar10", "--exp", "ranks", "--epoch_id", "1", "--seed", "0",
                 "--device", device, "--num_process_per_node", str(RANKS)]
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT), env.get("PYTHONPATH")]))
         folder = tmp / "generated_samples" / "cifar10"
         args = test_cli.build_parser().parse_args(argv)
         ccfg = test_cli.load_config(exp, args)
@@ -4412,42 +4441,47 @@ def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
             finally:
                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
-        for mode, extra, n, names in (
-                ("fid", ["--compute_fid", "--num_fid_samples", str(RANKS_FID_SAMPLES),
-                         "--batch_size", str(BATCH), "--real_img_dir", "real"],
-                 RANKS_FID_SAMPLES, "{}.png"),
-                ("plain", ["--batch_size", str(RANKS_PLAIN_BATCH)], RANKS_PLAIN_BATCH,
-                 "sample_{}.png")):
-            t0 = time.perf_counter()
-            res = subprocess.run([sys.executable, "-m", "ddgan_torch.cli.test_cli", *argv, *extra],
-                                 cwd=tmp, env=env, stdin=subprocess.DEVNULL, capture_output=True,
-                                 text=True, timeout=600)
-            run_s = time.perf_counter() - t0
-            check(res.returncode == 0, f"test_cli over {RANKS} ranks ({mode}) exited "
-                  f"{res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
-            files = sorted(folder.glob(names.format("*")))
-            check(len(files) == n and {p.name for p in files} == {names.format(i)
-                                                                 for i in range(n)},
-                  f"test_cli over ranks ({mode}): {len(files)} files, expected {n}")
-            per_rank = BATCH if mode == "fid" else -(-n // RANKS)
-            want = emulate(per_rank, -(-n // (per_rank * RANKS)))
-            got = decode_pngs([(folder / names.format(i)).read_bytes() for i in range(n)])
-            bad = [i for i in range(n) if not np.array_equal(got[i], want[i])]
-            check(not bad, f"test_cli over ranks ({mode}): {len(bad)} PNGs differ from the "
-                  f"one-process emulation, first {bad[:5]}")
-            out[mode] = {"files": n, "s": run_s}
-            if mode == "fid":
-                fids = [ln for ln in res.stdout.splitlines() if ln.startswith("FID = ")]
-                score = tmp / "fid_score.txt"
-                check(len(fids) == 1 and score.is_file()
-                      and score.stat().st_mtime_ns >= max(p.stat().st_mtime_ns for p in files)
-                      and np.isfinite(float(score.read_text())),
-                      f"FID lines {fids}; fid_score.txt after the PNGs: {score.is_file()}")
-                out[mode]["fid"] = float(score.read_text())
-            print(f"test_cli over {RANKS} gloo ranks on the card ({mode}): {n} PNGs equal to the "
-                  f"one-process emulation, {run_s:.1f} s"
-                  + (f"; FID {out[mode]['fid']!r} printed and written once" if mode == "fid"
-                     else ""))
+        with contextlib.chdir(tmp):  # the CLI writes under its working directory
+            for mode, extra, n, names in (
+                    ("fid", ["--compute_fid", "--num_fid_samples", str(RANKS_FID_SAMPLES),
+                             "--batch_size", str(BATCH), "--real_img_dir", "real"],
+                     RANKS_FID_SAMPLES, "{}.png"),
+                    ("plain", ["--batch_size", str(RANKS_PLAIN_BATCH)], RANKS_PLAIN_BATCH,
+                     "sample_{}.png")):
+                log = tmp / f"{mode}.log"
+                t0 = time.perf_counter()
+                try:
+                    with stdout_to(log):  # the spawned ranks print to the same descriptor
+                        test_cli.main([*argv, *extra],
+                                      init_method=f"file://{tmp}/rendezvous_{mode}",
+                                      deadline_s=600, timeout=datetime.timedelta(seconds=300))
+                except RuntimeError as e:
+                    check(False, f"test_cli over {RANKS} ranks ({mode}): {e}\n"
+                          f"{log.read_text()[-3000:]}")
+                run_s = time.perf_counter() - t0
+                files = sorted(folder.glob(names.format("*")))
+                check(len(files) == n and {p.name for p in files} == {names.format(i)
+                                                                     for i in range(n)},
+                      f"test_cli over ranks ({mode}): {len(files)} files, expected {n}")
+                per_rank = BATCH if mode == "fid" else -(-n // RANKS)
+                want = emulate(per_rank, -(-n // (per_rank * RANKS)))
+                got = decode_pngs([(folder / names.format(i)).read_bytes() for i in range(n)])
+                bad = [i for i in range(n) if not np.array_equal(got[i], want[i])]
+                check(not bad, f"test_cli over ranks ({mode}): {len(bad)} PNGs differ from the "
+                      f"one-process emulation, first {bad[:5]}")
+                out[mode] = {"files": n, "s": run_s}
+                if mode == "fid":
+                    fids = [ln for ln in log.read_text().splitlines() if ln.startswith("FID = ")]
+                    score = tmp / "fid_score.txt"
+                    check(len(fids) == 1 and score.is_file()
+                          and score.stat().st_mtime_ns >= max(p.stat().st_mtime_ns for p in files)
+                          and np.isfinite(float(score.read_text())),
+                          f"FID lines {fids}; fid_score.txt after the PNGs: {score.is_file()}")
+                    out[mode]["fid"] = float(score.read_text())
+                print(f"test_cli over {RANKS} gloo ranks on the card ({mode}): {n} PNGs equal "
+                      f"to the one-process emulation, {run_s:.1f} s"
+                      + (f"; FID {out[mode]['fid']!r} printed and written once" if mode == "fid"
+                         else ""))
     return out
 
 

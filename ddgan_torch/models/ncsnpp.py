@@ -40,7 +40,6 @@ dropout masks come from the generator given to `set_dropout_generator`
 from __future__ import annotations
 
 import contextlib
-import os
 from typing import Any, Sequence
 
 import torch
@@ -67,7 +66,6 @@ def _check(name: str, value: str, allowed: tuple) -> None:
 
 REMAT_POLICIES = {"full": "full", "": "full", "save-convs": "save-convs",
                   "save_convs": "save-convs", "convs": "save-convs"}
-REMAT_POLICY_ENV = "DDGAN_TPU_REMAT_POLICY"
 
 
 def resolve_use_remat(config: Any) -> bool:
@@ -85,9 +83,11 @@ def resolve_use_remat(config: Any) -> bool:
 
 
 def resolve_remat_policy(name: str) -> str:
-    """"full" or "save-convs": $DDGAN_TPU_REMAT_POLICY over `name`, as the JAX
-    package reads it (`ncsnpp.py:252-265`); anything else raises."""
-    pol = os.environ.get(REMAT_POLICY_ENV, name).lower()
+    """"full" or "save-convs", the names the JAX package takes
+    (`ncsnpp.py:252-265`); anything else raises. Its $DDGAN_TPU_REMAT_POLICY,
+    a knob for A/B runs on the TPU, is not read: the config key is the one
+    way to choose."""
+    pol = name.lower()
     if pol not in REMAT_POLICIES:
         raise ValueError(f"remat_policy={pol!r} not recognized (expected 'full' or 'save-convs')")
     return REMAT_POLICIES[pol]

@@ -16,12 +16,13 @@ parameters are cast to it, while the parameters themselves stay float32.
 With dtype None the layer computes in the promoted type of its input and
 parameters, as flax does.
 
-The 3x3 and 1x1 convs hand their outputs to `conv_out`, the counterpart of
-the JAX package's `name_conv_out` tag (`ddgan_tpu/nn/layers.py:36`): under
-a resblock checkpointed with remat_policy "save-convs"
-(`models/ncsnpp.py`) it keeps each conv's output in the forward and gives
-it back in the recompute, so that no conv runs twice, the hand-written
-kernel's included.
+While a resblock checkpointed with remat_policy "save-convs"
+(`models/ncsnpp.py`) runs, the 3x3 and 1x1 convs hand their outputs to
+`conv_out`, the counterpart of the JAX package's `name_conv_out` tag
+(`ddgan_tpu/nn/layers.py:36`): it keeps each conv's output in the forward
+and gives it back in the recompute, so that no conv runs twice, the
+hand-written kernel's included. Outside such a block a conv calls its
+function directly.
 """
 
 from __future__ import annotations
@@ -78,18 +79,28 @@ class ConvOutputs:
 
 
 _CONV_OUTPUTS = threading.local()  # the recompute runs on autograd's thread
+# `saving_conv_outputs` contexts open on any thread; while it is 0 the convs
+# skip `conv_out`. A conv on a thread without a store of its own computes in
+# `conv_out` as usual.
+_SAVING = 0
+_SAVING_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
 def saving_conv_outputs(store: ConvOutputs, replay: bool):
     """Within it, `conv_out` appends to `store` or, with `replay`, takes
     from it."""
+    global _SAVING
     prev = getattr(_CONV_OUTPUTS, "store", None)
     store.replay, store.next = replay, 0
     _CONV_OUTPUTS.store = store
+    with _SAVING_LOCK:
+        _SAVING += 1
     try:
         yield store
     finally:
+        with _SAVING_LOCK:
+            _SAVING -= 1
         _CONV_OUTPUTS.store = prev
 
 
@@ -201,6 +212,9 @@ class Conv2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(x, self.weight, self.dtype)
         b = None if self.bias is None else self.bias.to(dt)
+        if not _SAVING:
+            return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride, self.padding,
+                            self.dilation)
         xd, wd = x.to(dt), self.weight.to(dt)
         return conv_out(lambda: F.conv2d(xd, wd, b, self.stride, self.padding, self.dilation),
                         xd, wd)
@@ -231,6 +245,8 @@ class Conv3x3(Conv2d):
             and self.bias is not None
             and pair_conv.supported(x.shape, self.weight.shape, torch.bfloat16)
         ):
+            if not _SAVING:
+                return pair_conv.pair_conv3x3(x.to(torch.bfloat16), self.weight, self.bias)
             xb = x.to(torch.bfloat16)
             return conv_out(lambda: pair_conv.pair_conv3x3(xb, self.weight, self.bias),
                             xb, self.weight)

@@ -26,7 +26,6 @@ from ddgan_torch.compat import state_dict_from_flax
 from ddgan_torch.diffusion import DiffusionCoefficients, PosteriorCoefficients
 from ddgan_torch.models import DiscriminatorSmall, NCSNpp
 from ddgan_torch.models import ncsnpp as tncsnpp
-from ddgan_torch.nn import layers
 from ddgan_torch.ops import fir2x, pair_conv
 from ddgan_torch.train import ClippedAdam, create_train_state, make_train_step
 from ddgan_torch.utils import randomize_parameters_
@@ -46,20 +45,11 @@ POLICY_IDS = ["yes_full", "true_save_convs"]
 
 
 @pytest.fixture
-def count_convs(monkeypatch):
-    """Counts of the convs that `conv_out` computes (a replayed output is
-    not computed), forward and backward apart."""
-    counts = {"computed": 0}
-    real = layers.conv_out
-
-    def counting(compute, *saved):
-        def run():
-            counts["computed"] += 1
-            return compute()
-        return real(run, *saved)
-
-    monkeypatch.setattr(layers, "conv_out", counting)
-    return counts
+def count_convs():
+    """Counts of the convs of `nn/layers.py` that run (a replayed output is
+    not run), as `chip_smoke.py` phase 53 counts them."""
+    with SMOKE.counting_convs() as counts:
+        yield counts
 
 
 def _forward_backward(cfg, counts, seed=3, batch=2):
@@ -70,12 +60,12 @@ def _forward_backward(cfg, counts, seed=3, batch=2):
     t, z = torch.tensor([0, 3][:batch]), torch.from_numpy(randn(2, batch, cfg.nz))
     pair_conv.reset_launch_counts()
     fir2x.reset_launch_counts()
-    counts["computed"] = 0
+    counts["convs"] = 0
     out = net(x, t, z)
-    fwd = {"convs": counts["computed"], "k2": pair_conv.CALLS["forward"],
+    fwd = {"convs": counts["convs"], "k2": pair_conv.CALLS["forward"],
            "fir": {k: v["forward"] for k, v in fir2x.CALLS.items()}}
     (out.float() * nchw(randn(4, *out.permute(0, 2, 3, 1).shape))).sum().backward()
-    bwd = {"convs": counts["computed"] - fwd["convs"],
+    bwd = {"convs": counts["convs"] - fwd["convs"],
            "k2": pair_conv.CALLS["forward"] - fwd["k2"],
            "fir": {k: v["forward"] - fwd["fir"][k] for k, v in fir2x.CALLS.items()}}
     grads = {k: p.grad for k, p in net.named_parameters()}
@@ -122,6 +112,19 @@ def test_remat_through_the_gated_conv_bit_for_bit(count_convs):
             assert got[3]["k2"] == 0 and got[3]["convs"] == 0
         else:  # every gated conv of the forward sits in a resblock
             assert got[3]["k2"] == pair_conv.CALLS["forward"] - got[3]["k2"] == 8
+
+
+@pytest.mark.parametrize("use_remat,policy", [("no", "full"), ("yes", "full")],
+                         ids=["off", "full"])
+def test_convs_skip_conv_out_outside_save_convs(use_remat, policy, monkeypatch):
+    """Without a "save-convs" block running, the conv layers call their
+    function directly and never reach `conv_out`."""
+    from ddgan_torch.nn import layers
+
+    monkeypatch.setattr(layers, "conv_out", lambda *a: pytest.fail("conv_out reached"))
+    cfg = tiny_config(dropout=0.1, use_remat=use_remat, remat_policy=policy)
+    _forward_backward(cfg, {"convs": 0})
+    assert layers._SAVING == 0
 
 
 def _train_two_steps(cfg):
@@ -207,14 +210,15 @@ def test_use_remat_resolves_as_the_jax_package(raw, image_size):
 
 
 def test_remat_policy_env_and_refusal(monkeypatch):
-    """$DDGAN_TPU_REMAT_POLICY over remat_policy; an unknown policy raises in
-    both packages once remat is on, and is never read with it off."""
+    """The policy comes from remat_policy alone: the port does not read the
+    JAX package's $DDGAN_TPU_REMAT_POLICY. An unknown policy raises in both
+    packages once remat is on, and is never read with it off."""
     cfg = tiny_config(use_remat="yes", remat_policy="full")
+    monkeypatch.setenv("DDGAN_TPU_REMAT_POLICY", "save-convs")
     assert NCSNpp.from_config(cfg).remat_policy == "full"
     assert NCSNpp.from_config(cfg.replace(remat_policy="SAVE_CONVS")).remat_policy == "save-convs"
-    monkeypatch.setenv(tncsnpp.REMAT_POLICY_ENV, "save-convs")
-    assert NCSNpp.from_config(cfg).remat_policy == "save-convs"
-    monkeypatch.setenv(tncsnpp.REMAT_POLICY_ENV, "bogus")
+    monkeypatch.delenv("DDGAN_TPU_REMAT_POLICY")
+    cfg = cfg.replace(remat_policy="bogus")
     assert NCSNpp.from_config(cfg.replace(use_remat="no")).remat_policy is None
     with pytest.raises(ValueError, match="remat_policy='bogus' not recognized"):
         NCSNpp.from_config(cfg)

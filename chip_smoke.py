@@ -347,7 +347,32 @@ reference too:
      what_backend gloo): an FID set of 1,024 at 64 a rank, every PNG equal to a one-process
      emulation of the two ranks, the FID printed and written once after
      the last PNG; plain sampling of 63 over the two ranks, the same;
- 54. print the result, a `{"kernels": [...]}` line (the forward entries and
+
+WebP (`ddgan_torch.data.webp`, C++ built with the host C++ compiler, the
+format of the LSUN release's LMDB values); PIL writes the files and is the
+reference:
+
+ 54. the WebP decoder against PIL on this host (PIL's and its libwebp's
+     versions printed): every file of the tests' matrix
+     (`tests/_torch_webp.py`, loaded by path: lossy sizes 1x1 to 40x1100 x
+     qualities 0-100 x methods 0, 4, 6; "L", "RGB", "RGBA" with ALPH and
+     ICC/EXIF/XMP chunks; lossless fields and palettes of 2-200 colours;
+     frame 0 of four animations and of a built one at an offset; and where
+     the bundled libwebp loads through ctypes, its WebPEncode's files with
+     the simple filter, every sharpness, 1-4 segments and 1-8 partitions)
+     bit for bit, every malformed file of the matrix refused with
+     ValueError; ms per 341x256 lossy image, the port's and PIL's, in
+     turns on this host's clock;
+ 55. the LSUN Church Outdoor 256 recipe of phase 51 (bf16, batch 8, T=4)
+     through `main_cli --dataset lsun --data_dir` on a
+     church_outdoor_train_lmdb of WebP values, the release's format: 64
+     seeded 341 x 256 lossy WebPs at qualities 60-95 and methods 0-6 and 4
+     lossless ones, written by PIL under 40-hex-character keys: one epoch
+     of 4 steps (R1 at step 0), K1 and K2 by role as phase 51's formulas
+     count them, the sampler CLI at 256²; batch 0 of the loop's loader
+     against PIL + the JAX transform arithmetic (<= 1e-6), and its ms a
+     batch beside the bare step (phase 51's JPEG share beside it);
+ 56. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path, the
      pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
      the `{"ok": true, ...}` line last.
@@ -3960,6 +3985,7 @@ LMDB_GET_ENTRIES = 126_227  # LSUN church_outdoor train's entries
 LMDB_GET_VALUE = 2048  # bytes a value: on an overflow page, as every LSUN image is
 LMDB_GET_CALLS = 20_000
 LSUN_IMAGES = 64
+LSUN_LOSSLESS = 4  # lossless WebP values beside the lossy ones (phase 55)
 LSUN_W, LSUN_H = 341, 256  # LSUN's images have 256 on the short side
 LSUN_ITERS = 4  # steps an epoch (batch 8): epochs 0 and 1, R1 at step 0; epoch 2 resumed
 TRAIN_BATCH_LSUN = 8  # the LSUN Church 256 recipe's batch per GPU (tools/bench_extra.py:194)
@@ -4078,17 +4104,39 @@ def lmdb_on_host(writer) -> dict:
     return out
 
 
-def lsun_run(Image, writer, cfg, fir2x, pair_conv) -> dict:
+def lsun_values(Image, fmt: str) -> dict:
+    """{40-hex-character key: value} of LSUN_IMAGES seeded 341 x 256 toy
+    images: JPEGs at q95 (`fmt` "jpeg"), or lossy WebPs at qualities 60-95
+    and methods 0-6 and LSUN_LOSSLESS lossless ones ("webp"), all by PIL."""
+    rs = np.random.RandomState(51 if fmt == "jpeg" else 55)
+    items = {}
+    for i in range(LSUN_IMAGES + (LSUN_LOSSLESS if fmt == "webp" else 0)):
+        arr = (toy_image_wh(np.random.RandomState(51 * 7_000_003 + i), LSUN_W, LSUN_H)
+               * 255).astype(np.uint8)
+        if fmt == "jpeg":
+            value = jpeg_bytes(Image, arr)
+        else:
+            buf = io.BytesIO()
+            Image.fromarray(arr).save(buf, "WEBP", quality=60 + 5 * (i % 8), method=i % 7,
+                                      lossless=i >= LSUN_IMAGES)
+            value = buf.getvalue()
+        items[rs.bytes(20).hex().encode()] = value
+    return items
+
+
+def lsun_run(Image, writer, cfg, fir2x, pair_conv, fmt: str = "jpeg", resume_run: bool = True
+             ) -> dict:
     """The LSUN Church Outdoor 256 recipe through `main_cli --dataset lsun
-    --data_dir` on a church_outdoor_train_lmdb written by the tests' writer:
-    64 seeded 341 x 256 toy JPEGs at q95 under 40-hex-character keys, with
-    do_resize, ToTensor, Normalize and CenterCrop (256²) and the port's
-    "auto" remat: epochs 0 and 1 of 4 steps (phase 28's checks, K1 and K2
-    by role with the recompute term of the remat that "auto" picks), the
-    sampler CLI at 256², T=4; the key cache written in epoch 0 and read, not
-    rebuilt, by a --resume for epoch 2; then batch 0 of the loop's loader
-    against PIL + the JAX transform arithmetic (<= 1e-6) and its seconds a
-    batch beside the bare step."""
+    --data_dir` on a church_outdoor_train_lmdb written by the tests' writer
+    (`lsun_values(fmt)` under 40-hex-character keys), with do_resize,
+    ToTensor, Normalize and CenterCrop (256²) and the port's "auto" remat:
+    epochs 0 and 1 of 4 steps, or epoch 0 alone without `resume_run`
+    (phase 28's checks, K1 and K2 by role with the recompute term of the
+    remat that "auto" picks), the sampler CLI at 256², T=4; with
+    `resume_run` the key cache written in epoch 0 and read, not rebuilt, by
+    a --resume for epoch 2; then batch 0 of the loop's loader against PIL +
+    the JAX transform arithmetic (<= 1e-6) and its seconds a batch beside
+    the bare step."""
     from ddgan_torch.cli import main_cli
     from ddgan_torch.data import lmdb, make_dataset
     from ddgan_torch.models.ncsnpp import resolve_remat_policy, resolve_use_remat
@@ -4104,20 +4152,17 @@ def lsun_run(Image, writer, cfg, fir2x, pair_conv) -> dict:
     k2 = expected_k2_per_step(policy)
     with tempfile.TemporaryDirectory() as data_tmp:
         data = Path(data_tmp) / "lsun"
-        rs = np.random.RandomState(51)
         t0 = time.perf_counter()
-        items = {}
-        for i in range(LSUN_IMAGES):
-            arr = (toy_image_wh(np.random.RandomState(51 * 7_000_003 + i), LSUN_W, LSUN_H)
-                   * 255).astype(np.uint8)
-            items[rs.bytes(20).hex().encode()] = jpeg_bytes(Image, arr)
+        items = lsun_values(Image, fmt)
         root = data / "church_outdoor_train_lmdb"
         info = writer.write_lmdb(root, items)
         write_s = time.perf_counter() - t0
         cache = root / ("_cache_" + "".join(c for c in str(root) if c.isascii() and c.isalnum()))
         run_cfg = cfg.replace(data_dir=str(data), do_resize="yes", to_tensor_transform="yes",
-                              use_normalize="yes", CenterCrop="yes", exp="lsun256",
-                              limited_iter=LSUN_ITERS, num_epoch=1, save_ckpt_every=1)
+                              use_normalize="yes", CenterCrop="yes",
+                              exp="lsun256" if fmt == "jpeg" else f"lsun256{fmt}",
+                              limited_iter=LSUN_ITERS, num_epoch=1 if resume_run else 0,
+                              save_ckpt_every=1)
 
         def resume(argv, exp):
             check(cache.is_file() and pickle.loads(cache.read_bytes()) == sorted(items),
@@ -4144,7 +4189,8 @@ def lsun_run(Image, writer, cfg, fir2x, pair_conv) -> dict:
         run = loop_through_main_cli(run_cfg, None, fir2x, pair_conv, k2_per_step=k2,
                                     sample_launches=sample_launches,
                                     extra_argv=("--data_dir", str(data)),
-                                    g_fir={"remat": remat}, after=resume)
+                                    g_fir={"remat": remat},
+                                    after=resume if resume_run else None)
         ds = make_dataset(run_cfg)
         loader = build_loader(run_cfg, ds, run_cfg.batch_size)
         loader.set_epoch(0)
@@ -4158,13 +4204,16 @@ def lsun_run(Image, writer, cfg, fir2x, pair_conv) -> dict:
               f"lsun batch 0 {images[0].shape} against PIL and the JAX transforms: {err}")
     s_per_batch = float(np.mean(times))
     bare_ms = run["bare_after"]["plain_step"]
-    print(f"lsun256: {LSUN_IMAGES} JPEGs into an LMDB of {info['bytes']} bytes in {write_s:.2f} s; "
-          f"use_remat 'auto' -> {remat}; batch 0 against PIL + the JAX transforms max-abs "
-          f"{err!r}; loader {1e3 * s_per_batch:.1f} ms a batch of {run_cfg.batch_size} (LMDB get, "
-          f"decode, ToTensor, Normalize, crop; {len(times)} batches, one thread) beside the bare "
-          f"bf16 step {bare_ms:.1f} ms ({100 * 1e3 * s_per_batch / bare_ms:.1f}% of it); key cache "
-          f"{run['after']['cache_bytes']} bytes, read by the resume")
-    return {**run, "remat": remat, "lmdb_bytes": info["bytes"], "write_s": write_s,
+    cached = (f"; key cache {run['after']['cache_bytes']} bytes, read by the resume"
+              if resume_run else "")
+    print(f"{run_cfg.exp}: {len(items)} {fmt} values into an LMDB of {info['bytes']} bytes in "
+          f"{write_s:.2f} s; use_remat 'auto' -> {remat}; batch 0 against PIL + the JAX transforms "
+          f"max-abs {err!r}; loader {1e3 * s_per_batch:.1f} ms a batch of {run_cfg.batch_size} "
+          f"(LMDB get, decode, ToTensor, Normalize, crop; {len(times)} batches, one thread) beside "
+          f"the bare bf16 step {bare_ms:.1f} ms ({100 * 1e3 * s_per_batch / bare_ms:.1f}% of "
+          f"it){cached}")
+    return {**run, "format": fmt, "values": len(items), "remat": remat,
+            "lmdb_bytes": info["bytes"], "write_s": write_s,
             "batch0_max_abs": err, "loader_s_per_batch": s_per_batch, "loader_batch_s": times,
             "loader_share_of_bare_step": 1e3 * s_per_batch / bare_ms}
 
@@ -4483,6 +4532,59 @@ def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
                       + (f"; FID {out[mode]['fid']!r} printed and written once" if mode == "fid"
                          else ""))
     return out
+
+
+# ---------------------------------------------------------------------------
+# WebP: the decoder against PIL on the host, and lsun from WebP values
+WEBP_TIMED_QUALITY = 90  # the 341 x 256 lossy image timed in phase 54
+
+
+def webp_against_pil(Image) -> dict:
+    """The port's WebP decoder against PIL on this host: every file of the
+    tests' matrix (`tests/_torch_webp.py`'s `matrix`, PIL's files and, where
+    the bundled libwebp loads through ctypes, WebPEncode's) bit for bit (no
+    case has a bound), every malformed file of its `BROKEN` refused with
+    ValueError; ms per 341 x 256 lossy image of each, in turns."""
+    import PIL
+    from PIL import features
+
+    from ddgan_torch.data.webp import decode_webp
+
+    lw = tests_helper("_torch_webp")
+    libwebp = lw.version() if lw.load() is not None else "does not load through ctypes"
+    print(f"PIL {PIL.__version__}, its libwebp {features.version('webp')}; ctypes libwebp "
+          f"{libwebp} ({lw.libwebp_path()})")
+    t0 = time.perf_counter()
+    files = lw.matrix()
+    write_s = time.perf_counter() - t0
+    bad = []
+    for label, data in files:
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        got = decode_webp(data)
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad.append(label)
+    check(not bad, f"WebP decoder differs from PIL on {len(bad)} of {len(files)} files: {bad}")
+    kept = []
+    for kind, make in lw.BROKEN.items():
+        try:
+            decode_webp(make())
+            kept.append(kind)
+        except ValueError:
+            pass
+    check(not kept, f"malformed WebP files decoded without a ValueError: {kept}")
+    arr = (toy_image_wh(np.random.RandomState(54), LSUN_W, LSUN_H) * 255).astype(np.uint8)
+    data = lw.pil_save(arr, quality=WEBP_TIMED_QUALITY)
+    ms = host_ms_in_turns({"port": lambda: decode_webp(data),
+                           "pil": lambda: np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))})
+    encoder = sum(label.startswith("encoder") for label, _ in files)
+    print(f"WebP decoder: {len(files)} files bit for bit ({encoder} of them WebPEncode's; written "
+          f"in {write_s:.1f} s), {len(lw.BROKEN)} malformed files refused; {LSUN_W}x{LSUN_H} lossy "
+          f"q{WEBP_TIMED_QUALITY} ({len(data)} bytes) {ms['port']:.3f} ms an image (port), "
+          f"{ms['pil']:.3f} ms (PIL), on this host")
+    return {"pil": PIL.__version__, "pil_libwebp": features.version("webp"),
+            "ctypes_libwebp": libwebp, "files": len(files), "exact": len(files),
+            "encoder_files": encoder, "malformed_refused": len(lw.BROKEN),
+            "ms_341x256_lossy": ms, "timed_bytes": len(data)}
 
 
 def main() -> int:
@@ -5162,7 +5264,21 @@ def main() -> int:
           f"{RANKS_FID_SAMPLES} and plain sampling of {RANKS_PLAIN_BATCH}")
     lmdb_runs["sampler_cli_ranks"] = sampler_cli_over_ranks(cfg, flag_sd, dev)
 
-    phase("54 result")
+    phase("54 the WebP decoder against PIL on this host: the tests' matrix, malformed files, "
+          "ms per 341x256 lossy image")
+    lmdb_runs["webp"] = webp_against_pil(Image)
+
+    phase("55 the LSUN Church Outdoor 256 recipe from an LMDB of WebP values through main_cli "
+          "(bf16, batch 8, T=4): one epoch, sampled at 256²")
+    lmdb_runs["lsun256_webp"] = lsun_run(Image, lmdb_writer, cfg_lsun, fir2x, pair_conv,
+                                         fmt="webp", resume_run=False)
+    train_paths["lsun256_webp_main_cli"] = lmdb_runs["lsun256_webp"]["launches"]
+    print(f"loader share of the bare step: WebP "
+          f"{100 * lmdb_runs['lsun256_webp']['loader_share_of_bare_step']:.1f}%, JPEG (phase 51) "
+          f"{100 * lmdb_runs['lsun256']['loader_share_of_bare_step']:.1f}%")
+    torch.cuda.empty_cache()
+
+    phase("56 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
                   "celeba256_inception_score": evals["inception_score"]["launches"],

@@ -4,12 +4,12 @@ The port's own copy of `ddgan_tpu/data/lmdb_datasets.py` (reference:
 datasets_prep/lmdb_datasets.py, the CelebA-HQ 27000/3000 split, and
 datasets_prep/lsun.py, torchvision's LSUN with a cached key list). It reads
 the LMDB files with `data/lmdb.py` instead of the `lmdb` package, and
-decodes encoded values with `utils.decode_images` instead of PIL: PNG and
-baseline JPEG, grey replicated to RGB as `.convert("RGB")` does. Other
-formats raise NotImplementedError naming ROADMAP.md Queue 1 item 13; a
-WebP value, as the LSUN release's `data.py export` writes them, names item
-13e. Items are the uint8 (H, W, 3) arrays that the JAX package wraps in PIL
-images, through the same transform.
+decodes encoded values with `utils.decode_images` instead of PIL: PNG,
+baseline JPEG and WebP (the LSUN release's values, as its `data.py export`
+writes them), grey replicated to RGB as `.convert("RGB")` does. Other
+formats raise NotImplementedError naming ROADMAP.md Queue 1 item 13. Items
+are the uint8 (H, W, 3) arrays that the JAX package wraps in PIL images,
+through the same transform.
 """
 
 from __future__ import annotations

@@ -8,8 +8,8 @@ ones via DDGAN_TPU_INCEPTION_RANDOM).
 
 Folder protocol matches the reference: images under class subfolders
 (ImageFolder layout) or flat; inputs are resized and normalized by the
-feature function itself. Images are read with the port's decoders (PNG and
-baseline JPEG, `utils.decode_images`).
+feature function itself. Images are read with the port's decoders (PNG,
+baseline JPEG and WebP, `utils.decode_images`).
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ the file and shell helpers of the reference's additionals/utilities.py.
 `save_image`, `to_range_0_1`, `copy_file`, `copy_directory`, `move_file`,
 `run_bash_command`, `find_python_command` and `install_package` follow
 `ddgan_tpu/utils.py`; PNGs are encoded and decoded with the standard
-library (zlib) and baseline JPEGs decoded by the port's own decoder
-(`data/jpeg.py`), so the port needs no imaging package.
+library (zlib), baseline JPEGs and WebP files decoded by the port's own
+decoders (`data/jpeg.py`, `data/webp.py`), so the port needs no imaging
+package.
 """
 
 from __future__ import annotations
@@ -58,8 +59,8 @@ _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 def _not_decodable(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: ddgan_torch reads 8-bit non-interlaced PNGs and baseline JPEGs only; other "
-        "images need an image decoder (ROADMAP.md Queue 1 item 13)."
+        f"{what}: ddgan_torch reads 8-bit non-interlaced PNGs, baseline JPEGs and WebP "
+        "files only; other images need an image decoder (ROADMAP.md Queue 1 item 13)."
     )
 
 
@@ -191,26 +192,25 @@ def decode_images(datas) -> list[np.ndarray]:
     """(H, W, 3) uint8 pixels of each image file's bytes, as PIL's
     `Image.open(f).convert("RGB")` gives them, the format told by its first
     bytes: PNGs through `decode_pngs` (together), JPEGs through
-    `data.jpeg.decode_jpeg` (grey replicated to three channels). A WebP
-    file (RIFF....WEBP, the LSUN release's values) raises
-    NotImplementedError naming ROADMAP.md Queue 1 item 13e, any other format
-    naming item 13."""
+    `data.jpeg.decode_jpeg` (grey replicated to three channels), WebP files
+    (RIFF....WEBP, the LSUN release's values) through `data.webp.decode_webp`.
+    Any other format raises NotImplementedError naming ROADMAP.md Queue 1
+    item 13."""
     from .data.jpeg import SOI, decode_jpeg
+    from .data.webp import decode_webp, is_webp
 
     datas = [bytes(d) for d in datas]
     for d in datas:
-        if d[:4] == b"RIFF" and d[8:12] == b"WEBP":
-            raise NotImplementedError(
-                "a WebP image: ddgan_torch has no WebP decoder yet (ROADMAP.md Queue 1 item "
-                "13e); LSUN's LMDB values are WebP files. Re-encode them as JPEG or PNG.")
-        if not (d.startswith(_PNG_SIGNATURE) or d.startswith(SOI)):
-            raise _not_decodable("an image that is neither PNG nor JPEG")
+        if not (d.startswith(_PNG_SIGNATURE) or d.startswith(SOI) or is_webp(d)):
+            raise _not_decodable("an image that is neither PNG, JPEG nor WebP")
     pngs = [i for i, d in enumerate(datas) if d.startswith(_PNG_SIGNATURE)]
     out: list = [None] * len(datas)
     for i, img in zip(pngs, decode_pngs([datas[i] for i in pngs])):
         out[i] = img
     for i, d in enumerate(datas):
-        if out[i] is None:
+        if out[i] is None and is_webp(d):
+            out[i] = decode_webp(d)
+        elif out[i] is None:
             img = decode_jpeg(d)
             out[i] = np.repeat(img[:, :, None], 3, axis=2) if img.ndim == 2 else img
     return out

@@ -189,6 +189,26 @@ def test_fid_loader_reads_pil_files_as_the_jax_package_does(tmp_path):
         np.testing.assert_array_equal(img, jfid._load_image_01(f))
 
 
+@pytest.mark.parametrize("resize", [0, 16])
+def test_fid_loader_reads_webp_files_as_the_jax_package_does(tmp_path, resize):
+    """A directory of .webp files (`IMAGE_EXTENSIONS` lists webp): lossy
+    RGB and grey, lossy RGBA, lossless, each through the port's FID reader
+    and `ddgan_tpu/eval/fid.py:_load_image_01`, exactly."""
+    rs = np.random.RandomState(13)
+    for k, (h, w) in enumerate([(9, 13), (40, 24), (64, 64)]):
+        arr = _smooth(rs, h, w, 4)
+        for name, im, save in (("lossy", Image.fromarray(arr[:, :, :3]), dict(quality=80)),
+                               ("grey", Image.fromarray(arr[:, :, 0]), dict(quality=60)),
+                               ("rgba", Image.fromarray(arr), dict(quality=90)),
+                               ("lossless", Image.fromarray(arr[:, :, :3]), dict(lossless=True))):
+            im.save(tmp_path / f"{k}_{name}.webp", **save)
+    files = fid.list_image_files(tmp_path)
+    assert files == jfid.list_image_files(tmp_path) and len(files) == 12
+    got = fid._load_images_01(files, resize=resize)
+    for f, img in zip(files, got):
+        np.testing.assert_array_equal(img, jfid._load_image_01(f, resize=resize), str(f))
+
+
 def _image_folder(tmp_path, sizes) -> list:
     """JPEGs (RGB at 4:2:0 and 4:4:4, grey) and PNGs (RGB, grey) written
     by PIL, one of each kind at each (H, W)."""

@@ -10,7 +10,8 @@ against the JAX package's classes, whose `lmdb` module is replaced in the
 test by a dict-backed fake holding the same entries (nothing in
 `ddgan_tpu` changes): CelebA-HQ raw and encoded, LSUN over three classes,
 its key cache written by either package and read by the other, and
-`make_dataset` for lsun, celeba_256 and celeba. Every comparison is exact.
+`make_dataset` for lsun, celeba_256 and celeba, on PNG, JPEG and WebP
+values (the LSUN release's format). Every comparison is exact.
 """
 
 import io
@@ -332,10 +333,21 @@ def test_lsun_key_cache_crosses_between_the_packages(tmp_path, fake, writer):
     _assert_items(jds, tds, range(5))
 
 
+def _webp(rs, i):
+    """A WebP value as the LSUN release holds them (lossy RGB at several
+    qualities and methods), and now and then a lossless or a grey one."""
+    h, w = [(20, 26), (31, 17), (24, 24), (18, 22), (26, 20)][i % 5]
+    arr = _smooth(rs, h, w, 3)
+    im = Image.fromarray(arr[:, :, 0]) if i % 5 == 4 else Image.fromarray(arr)
+    buf = io.BytesIO()
+    im.save(buf, format="WEBP", quality=60 + 7 * (i % 6), method=i % 7, lossless=i % 5 == 3)
+    return buf.getvalue()
+
+
 def test_make_dataset_lsun_matches(tmp_path, fake):
     """make_dataset('lsun') reads data_dir/church_outdoor_train_lmdb (the
-    default lsun_class) in both packages; a WebP value raises naming item
-    13e in the port."""
+    default lsun_class) in both packages; an LSUN class of WebP values, the
+    release's format, matches item for item."""
     rs = np.random.RandomState(8)
     items = {rs.bytes(20).hex().encode(): _encoded(rs, i) for i in range(4)}
     _both_dbs(fake, tmp_path / "church_outdoor_train_lmdb", items)
@@ -343,7 +355,22 @@ def test_make_dataset_lsun_matches(tmp_path, fake):
     jds, tds = jdata.make_dataset(jcfg), tdata.make_dataset(tcfg)
     assert isinstance(tds, tlmdb.LSUN) and tds.classes == ["church_outdoor_train"]
     _assert_items(jds, tds, range(4))
-    webp = b"RIFF" + (30).to_bytes(4, "little") + b"WEBPVP8 " + bytes(22)
-    write_lmdb(tmp_path / "tower_train_lmdb", {b"0" * 40: webp})
-    with pytest.raises(NotImplementedError, match="item 13e"):
-        tlmdb.LSUN(str(tmp_path), classes=["tower_train"])[0]
+    webps = {rs.bytes(20).hex().encode(): _webp(rs, i) for i in range(10)}
+    _both_dbs(fake, tmp_path / "tower_train_lmdb", webps)
+    jt, tt = jdata.build_transform(jcfg), tdata.build_transform(tcfg)
+    jds = jlmdb.LSUN(str(tmp_path), classes=["tower_train"], transform=jt)
+    tds = tlmdb.LSUN(str(tmp_path), classes=["tower_train"], transform=tt)
+    assert len(tds) == len(jds) == 10
+    _assert_items(jds, tds, range(10))
+
+
+@pytest.mark.parametrize("flags", TRANSFORMS, ids=["none", "resize_tensor_norm_crop"])
+def test_celeba_lmdb_of_webp_values_matches(tmp_path, fake, flags):
+    """LMDBDataset(is_encoded=True) on WebP values (make_dataset's
+    celeba_256), item for item against the JAX package's."""
+    rs = np.random.RandomState(9)
+    _both_dbs(fake, tmp_path / "train.lmdb", {str(i).encode(): _webp(rs, i) for i in range(10)})
+    jcfg, tcfg = _configs(flags, dataset="celeba_256", data_dir=str(tmp_path))
+    jds, tds = jdata.make_dataset(jcfg), tdata.make_dataset(tcfg)
+    assert isinstance(tds, tlmdb.LMDBDataset) and tds.is_encoded
+    _assert_items(jds, tds, range(10))

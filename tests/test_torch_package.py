@@ -1,7 +1,7 @@
 """Package rules of the port (`ddgan_torch`): it never imports JAX, the
 JAX package, PIL, msgpack or lmdb (its flax reader, its image readers and
 its LMDB reader are its own), scipy only for the FID's matrix square root,
-its JPEG decoder builds only into the git-ignored `ddgan_torch/_build/`,
+its JPEG and WebP decoders build only into the git-ignored `ddgan_torch/_build/`,
 its entry points (the train CLIs among them) run on the GPU unless the CPU
 is asked for, its config schema is the JAX package's, every module of the
 JAX package has its counterpart, its file helpers are the JAX package's,
@@ -120,17 +120,20 @@ def test_library_layers_import_no_jax():
 
 
 def test_image_file_modules_import_no_pil_or_jax():
-    """The image readers of the port, each alone: the resize, the JPEG
-    decoder's binding, the volume cache, the host build helper, the
-    datasets and the FID loader (their JAX counterparts import PIL)."""
-    mods = ["ddgan_torch.data.resize", "ddgan_torch.data.jpeg", "ddgan_torch.data.slicecache",
-            "ddgan_torch.ops._cxx", "ddgan_torch.utils", "ddgan_torch.data.datasets",
+    """The image readers of the port, each alone: the resize, the JPEG and
+    WebP decoders' bindings, the volume cache, the host build helper, the
+    datasets, the LMDB datasets and the FID loader (their JAX counterparts
+    import PIL)."""
+    mods = ["ddgan_torch.data.resize", "ddgan_torch.data.jpeg", "ddgan_torch.data.webp",
+            "ddgan_torch.data.slicecache", "ddgan_torch.ops._cxx", "ddgan_torch.utils",
+            "ddgan_torch.data.datasets", "ddgan_torch.data.lmdb_datasets",
             "ddgan_torch.data.factory", "ddgan_torch.eval.fid"]
     code = (
         "import importlib, sys\n"
         f"for n in {mods!r}: importlib.import_module(n)\n"
         "from ddgan_torch.utils import decode_images\n"
         "from ddgan_torch.data.jpeg import decode_jpeg\n"
+        "from ddgan_torch.data.webp import decode_webp\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -139,7 +142,7 @@ def test_image_file_modules_import_no_pil_or_jax():
                          timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout + res.stderr
     sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
-    assert {"ddgan_torch/data/resize.py", "ddgan_torch/data/jpeg.py",
+    assert {"ddgan_torch/data/resize.py", "ddgan_torch/data/jpeg.py", "ddgan_torch/data/webp.py",
             "ddgan_torch/data/slicecache.py", "ddgan_torch/ops/_cxx.py"} <= sources
 
 
@@ -174,6 +177,29 @@ def test_jpeg_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode != 0 and "RuntimeError: false failed" in res.stderr, res.stderr
     assert not list((pkg / "_build").iterdir())
+
+
+def test_webp_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
+    """As the JPEG decoder: a copy of the package builds webp_decode.cpp at
+    first use into ddgan_torch/_build/ and adds nothing else; a malformed
+    file raises ValueError, with no fallback."""
+    pkg = tmp_path / "ddgan_torch"
+    shutil.copytree(ROOT / "ddgan_torch", pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    before = {p for p in tmp_path.rglob("*") if p.is_file()}
+    code = ("from ddgan_torch.data.webp import decode_webp\n"
+            "try:\n"
+            "    decode_webp(b'RIFF\\x04\\0\\0\\0WEBP')\n"
+            "except ValueError as e:\n"
+            "    print('malformed:', e)\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CXX")}
+    env["PYTHONDONTWRITEBYTECODE"] = "1"
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "malformed" in res.stdout, res.stdout + res.stderr
+    added = {p for p in tmp_path.rglob("*") if p.is_file()} - before
+    assert [(p.parent, p.name.startswith("libwebp_decode_")) for p in added] == [
+        (pkg / "_build", True)]
 
 
 # what the JAX package has and the port has no file of that name for, each
@@ -461,6 +487,27 @@ def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
     np.testing.assert_array_equal(images[0], want)
     jds = jdata.make_dataset(JConfig(**kw))
     np.testing.assert_array_equal(np.stack([jds[int(i)][0] for i in idx]), want)
+
+
+def test_chip_smoke_webp_phases_hold_on_this_host():
+    """Phases 54-55's host code on the CPU: the WebP matrix against this
+    machine's PIL, and phase 55's LMDB values (lossy at qualities 60-95 and
+    methods 0-6, and lossless) decoded as PIL decodes them."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from ddgan_torch.utils import decode_images
+
+    cs = _chip_smoke()
+    out = cs.webp_against_pil(Image)
+    assert out["exact"] == out["files"] >= 187 and out["malformed_refused"] >= 10
+    values = list(cs.lsun_values(Image, "webp").values())
+    assert len(values) == cs.LSUN_IMAGES + cs.LSUN_LOSSLESS
+    assert sum(v[12:16] == b"VP8L" for v in values) == cs.LSUN_LOSSLESS
+    for got, v in zip(decode_images(values[::9] + values[-2:]), values[::9] + values[-2:]):
+        np.testing.assert_array_equal(got, np.asarray(Image.open(io.BytesIO(v)).convert("RGB")))
 
 
 def test_file_helpers_match_the_jax_package(tmp_path, capsys):

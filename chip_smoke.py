@@ -112,11 +112,11 @@ temporary working directory whose ./configs/config.json it writes:
 
  27. the flagship recipe in bf16 at batch 64 on `synthetic` 32² data
      through `python -m ddgan_torch.cli.train_cli --use_config_file True`
-     in a subprocess (6 epochs of 8 steps, netG every epoch, R1 at steps 0,
-     15, 30 and 45), killed with SIGKILL once losses.json holds three epochs;
+     in a subprocess (4 epochs of 8 steps, netG every epoch, R1 at steps 0,
+     15 and 30), killed with SIGKILL once losses.json holds three epochs;
      then the same command with --resume in this process: it must load the
      checkpoint, keep losses.json's entries up to that epoch verbatim and
-     end it at epoch 6, write content.pth with global_step 48 and netG
+     end it at epoch 4, write content.pth with global_step 32 and netG
      files that load with strict=True, and launch K1 per
      `expected_fir_calls` for each of its steps; the sampler CLI then
      writes 64 PNGs from the last netG_*.pth;
@@ -140,9 +140,13 @@ real ones are in the repository):
      its bound (the multiply-adds of one forward, counted from the layer
      shapes, at 67 TFLOP/s f32);
  30. the main path: `test_cli --compute_fid` on the full-width flagship at
-     batch 64 (phase 7's weights in a netG_1.pth), 4,096 samples against
-     4,096 seeded 32² PNGs that the phase writes with a row filter chosen
-     as PIL chooses it (the files a user's real directory holds): 24
+     batch 64 (phase 7's weights in a netG_1.pth), 2,304 samples against
+     2,304 seeded 32² images that the phase writes, PNGs with a row filter
+     chosen as PIL chooses it (the files a user's real directory holds)
+     and every 16th file in one of 12 other layouts in turn (24-bit and
+     8-bit palette BMP, PPM, PGM, TIFF with LZW, Deflate or PackBits,
+     progressive and arithmetic-coded JPEG, 16-bit, Adam7 and 4-bit
+     palette PNG; the tests' writers and PIL write them): 24
      down2x and 24 up2x launches per sampler call and no pair_conv3x3, a
      finite FID > 0 that fid_output_path holds, the same FID from .npz
      statistics of both directories (`save_statistics`) within 1e-6
@@ -150,8 +154,10 @@ real ones are in the repository):
      1e-3 of trace(sigma); the seconds of sampling (the device span of the
      calls), PNG encoding, PNG decoding, Inception and the Fréchet distance
      (sqrtm) apart, and samples/s of the whole CLI call; then the FID
-     loader on the filtered real set and on 250 filtered 256² PNGs, every
-     image exact, ms per image;
+     loader on the real set (every file equal to this host's PIL, and to
+     the pixels written where the file is lossless; ms per image of the
+     whole set and of its PNGs alone, each layout beside PIL's) and on
+     100 filtered 256² PNGs, every image exact, ms per image;
  31. the Inception Score: the CelebA-HQ 256 bf16 sampler at batch 16 writes
      256 samples as one .npy stack (46 pair_conv3x3, 20 down2x and 20 up2x
      launches per call), which `ddgan_torch.eval.inception_score.main`
@@ -188,8 +194,8 @@ HPO search `ddgan_torch.pso`) and a run between the packages
  36. `python -m ddgan_torch.pso.cli` in process, in a directory holding
      copies of the repository's configs (dataset synthetic, the rest as
      shipped: 64², 1 channel, nf 128, batch 16): 2 particles x 2
-     iterations at 4 steps an epoch with combined scoring, the pso-optim
-     preset (2 x 1), and one evaluation in a subprocess; every score finite
+     iterations at 2 steps an epoch with combined scoring, the pso-optim
+     preset (1 x 1), and one evaluation in a subprocess; every score finite
      or inf, best_hyperparameters.json written, no pso_eval_* directory or
      configs/config_*.json left, the repository's configs/config.json
      unchanged (sha256); seconds per evaluation, FIR calls by role;
@@ -262,7 +268,7 @@ one NCCL rank, or two gloo ranks sharing the card:
      step;
  46. two gloo ranks sharing the card through `parallel.init_processes` and
      `train.loop.train` (`device` cuda): the flagship at batch 64 per rank,
-     two epochs of 4 steps; the ranks' weights and EMA equal (a CRC of
+     two epochs of 2 steps; the ranks' weights and EMA equal (a CRC of
      every byte), each rank's FIR calls as `expected_run_calls`, each
      rank's time, peak memory and optimizer bytes; rank 0's weights after
      the first step against a one-process emulation (each shard's losses
@@ -282,7 +288,8 @@ host:
      writes: sizes 1x1, 7x9, 17x33 and 255x257 x quality 50, 75, 95, 100 x
      4:4:4, 4:2:2, 4:2:0 and grey, then each layout with optimized tables,
      restart markers every MCU and every MCU row: every file bit for bit
-     (no case has a bound); a progressive file must raise naming item 13;
+     (no case has a bound), and a progressive file (refused until the
+     decoder read progressive files) equal to PIL's decode;
      ms per 256² q95 4:2:0 image, the port's and PIL's; then `resize`
      against PIL, bilinear and bicubic, "L" and "RGB", shrinking and
      enlarging (171 cases with `Luna16Dataset2`'s crop), bit for bit, and
@@ -291,11 +298,16 @@ host:
      (phase 28's run and checks: bf16, batch 4, epochs 0 and 1 of 4 steps,
      K2 64 launches a step and K1 as `expected_fir_calls`, then the sampler
      CLI at 256²) on 64 seeded 320x288 JPEGs written at q95 as
-     `tools/quality_soak256.py:61` writes them, with do_resize (284x256),
-     ToTensor, Normalize and CenterCrop (256²); then the loop's loader:
-     batch 0 against the same four files decoded by PIL and put through
-     the JAX package's transform arithmetic (copied here; max-abs <= 1e-6),
-     and its seconds per batch beside the bare step;
+     `tools/quality_soak256.py:61` writes them, 32 baseline, 16
+     progressive, 8 arithmetic-coded sequential and 8 progressive (PIL's
+     baseline files re-encoded by the tests' `_torch_jpeg_arith.py`; a set
+     that covers the codings, not a traffic mix), the loader's batch 0
+     holding one of each, with do_resize (284x256), ToTensor, Normalize
+     and CenterCrop (256²); then the loop's loader: batch 0 against the
+     same four files decoded by PIL and put through the JAX package's
+     transform arithmetic (copied here; max-abs <= 1e-6), and its seconds
+     per batch beside the bare step, on that set and on the same 64
+     images written all baseline;
  49. the shipped configs/config.json (luna16, 64², 1 channel, nf 128, batch
      16, T=1, f32) through `main_cli --data_dir ... --limited_slices True`
      on three seeded 256³ int16 volumes with masks written by the port's
@@ -340,11 +352,11 @@ reference too:
      without, cuDNN deterministic): G's gradients and weights, the EMA
      and D equal bit for bit; launches by role (K2's recompute term under
      "full", K1's under both) and under "save-convs" as many conv runs as
-     without remat; then nine R1-free steps of each in turns, ms and the
+     without remat; then five R1-free steps of each in turns, ms and the
      peak memory above the resident state;
  53b. `test_cli.main` with `--num_process_per_node 2 --device cuda:0` (a
      `file://` rendezvous) on the full-width flagship (saved with
-     what_backend gloo): an FID set of 1,024 at 64 a rank, every PNG equal to a one-process
+     what_backend gloo): an FID set of 256 at 64 a rank, every PNG equal to a one-process
      emulation of the two ranks, the FID printed and written once after
      the last PNG; plain sampling of 63 over the two ranks, the same;
 
@@ -372,7 +384,23 @@ reference:
      count them, the sampler CLI at 256²; batch 0 of the loop's loader
      against PIL + the JAX transform arithmetic (<= 1e-6), and its ms a
      batch beside the bare step (phase 51's JPEG share beside it);
- 56. print the result, a `{"kernels": [...]}` line (the forward entries and
+
+BMP, PBM/PGM/PPM and TIFF (`ddgan_torch.data.bmp`, `data.netpbm`,
+`data.tiff` with C++ LZW and PackBits), progressive, arithmetic-coded,
+CMYK and RGB-coded JPEG and PNG at every bit depth and with Adam7, all
+through `utils.decode_images`; the tests' writers and PIL write the files
+and PIL is the reference:
+
+ 56. every file of the tests' matrices (`tests/_torch_imagewriters.py` and
+     `tests/_torch_jpeg_arith.py`, loaded by path) against this host's PIL,
+     bit for bit; their malformed files refused with ValueError and their
+     still-refused layouts (lossless, hierarchical and 12-bit JPEG, JPEG
+     whose scans libjpeg would smooth, JPEG-in-TIFF, CCITT, float and
+     YCbCr TIFF, BigTIFF, BMP with JPEG inside, PFM, GIF) with
+     NotImplementedError naming item 13i; ms per 256² image, the port's
+     and PIL's in turns: a q95 4:2:0 JPEG baseline, progressive and
+     arithmetic-coded, an LZW TIFF, a 24-bit BMP and a 16-bit PNG;
+ 57. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path, the
      pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
      the `{"ok": true, ...}` line last.
@@ -1338,8 +1366,8 @@ def time_steps(state, step, real, rng, n: int) -> dict:
 
 # ---------------------------------------------------------------------------
 # the train loop through the CLIs
-LOOP_ITERS = 8  # flagship steps an epoch (batch 64): 6 epochs, R1 at steps 0, 15, 30 and 45
-LOOP_EPOCHS = 5  # num_epoch: epochs 0..5
+LOOP_ITERS = 8  # flagship steps an epoch (batch 64): 4 epochs, R1 at steps 0, 15 and 30
+LOOP_EPOCHS = 3  # num_epoch: epochs 0..3
 LOOP_ITERS_256 = 4  # CelebA-HQ 256 steps an epoch (batch 4): 3 epochs, R1 at steps 0 and 10
 LOOP_EPOCHS_256 = 2
 EPOCH_LINE = re.compile(r"\[epoch (\d+)\] (\d+) iters in ([0-9.]+)s \(.*\), saves ([0-9.]+)s")
@@ -1705,9 +1733,9 @@ def print_loops(loops: dict) -> None:
 
 # ---------------------------------------------------------------------------
 # evaluation: FID-InceptionV3, the sampler CLI's --compute_fid, the IS CLI
-FID_SAMPLES = 4096  # above 2048, so both 2048-dim covariances are full rank
+FID_SAMPLES = 2304  # above 2048, so both 2048-dim covariances are full rank
 IS_SAMPLES = 256
-DECODE_256_IMAGES = 250  # filtered 256² PNGs timed through the FID loader
+DECODE_256_IMAGES = 100  # filtered 256² PNGs timed through the FID loader
 INCEPTION_BATCH = 50  # the FID path's batch (test_cli passes 50)
 
 
@@ -1900,26 +1928,94 @@ def encode_png_adaptive(arr: np.ndarray) -> tuple[bytes, np.ndarray]:
     return png, filters
 
 
-def write_filtered_set(directory: Path, n: int, side: int, seed: int) -> dict:
-    """n smooth side² images as adaptively filtered PNGs; their pixels, the
-    rows' filter counts and the seconds it took."""
+# phase 30's real set: every 16th file in one of these layouts, in turn
+# (written by the tests' writers and PIL), the rest adaptively filtered PNGs
+REAL_SET_LAYOUTS = ["bmp 24-bit", "bmp 8-bit palette", "ppm", "pgm", "tiff LZW", "tiff Deflate",
+                    "tiff PackBits", "jpeg progressive", "jpeg arithmetic", "png 16-bit",
+                    "png Adam7", "png 4-bit palette"]
+REAL_SET_EVERY = 16
+
+
+def quantized(px: np.ndarray, bits: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """Palette indices of (H, W, 3) pixels at (r, g, b) bits each, and the
+    palette (its levels spread over 0-255)."""
+    idx = np.zeros(px.shape[:2], np.int64)
+    for c, b in enumerate(bits):
+        idx = (idx << b) | (px[:, :, c].astype(np.int64) >> (8 - b))
+    levels = [np.arange(1 << b) * 255 // ((1 << b) - 1) for b in bits]
+    grid = np.stack(np.meshgrid(*levels, indexing="ij"), -1).reshape(-1, 3)
+    return idx, grid.astype(np.uint8)
+
+
+def real_set_file(layout: str, px: np.ndarray, Image, writers, arith) -> tuple:
+    """(extension, bytes, pixels) of one 32² image in a layout of
+    REAL_SET_LAYOUTS; pixels are what the file holds (None for lossy JPEG)."""
+    if layout == "bmp 24-bit":
+        return "bmp", writers.bmp(px, 24), px
+    if layout == "bmp 8-bit palette":
+        idx, pal = quantized(px, (3, 3, 2))
+        return "bmp", writers.bmp(idx, 8, palette=pal), pal[idx]
+    if layout == "ppm":
+        return "ppm", writers.netpbm(px, "P6"), px
+    if layout == "pgm":
+        grey = px[:, :, 1]
+        return "pgm", writers.netpbm(grey, "P5"), np.repeat(grey[:, :, None], 3, axis=2)
+    if layout.startswith("tiff"):
+        comp = {"tiff LZW": 5, "tiff Deflate": 8, "tiff PackBits": 32773}[layout]
+        return "tif", writers.tiff(px, photometric=2, compression=comp,
+                                   predictor=2 if comp == 5 else 1), px
+    if layout == "png 16-bit":
+        return "png", writers.png(px.astype(np.uint16) * 257, 2, 16), px
+    if layout == "png Adam7":
+        return "png", writers.png(px, 2, 8, interlace=1), px
+    if layout == "png 4-bit palette":
+        idx, pal = quantized(px, (2, 1, 1))
+        return "png", writers.png(idx[:, :, None], 3, 4, palette=pal), pal[idx]
+    buf = io.BytesIO()
+    Image.fromarray(px).save(buf, "JPEG", quality=90, progressive=layout == "jpeg progressive")
+    data = buf.getvalue()
+    return "jpg", arith.to_arithmetic(data) if layout == "jpeg arithmetic" else data, None
+
+
+def write_filtered_set(directory: Path, n: int, side: int, seed: int, Image=None) -> dict:
+    """n smooth side² images as adaptively filtered PNGs; with PIL's
+    `Image`, every REAL_SET_EVERY-th one in the next of REAL_SET_LAYOUTS
+    instead. Their pixels (None where lossy), layouts, the PNG rows'
+    filter counts and the seconds it took."""
     directory.mkdir()
     rs = np.random.RandomState(seed)
+    writers = arith = None
+    if Image is not None:
+        writers, arith = tests_helper("_torch_imagewriters"), tests_helper("_torch_jpeg_arith")
     t0 = time.perf_counter()
-    pixels, hist = [], np.zeros(5, np.int64)
+    pixels, layouts, hist = [], [], np.zeros(5, np.int64)
     for i in range(n):
-        pixels.append(smooth_image(rs, side))
-        png, filters = encode_png_adaptive(pixels[-1])
+        px = smooth_image(rs, side)
+        if Image is not None and i % REAL_SET_EVERY == 0:
+            layout = REAL_SET_LAYOUTS[(i // REAL_SET_EVERY) % len(REAL_SET_LAYOUTS)]
+            ext, data, held = real_set_file(layout, px, Image, writers, arith)
+            (directory / f"{i}.{ext}").write_bytes(data)
+            pixels.append(held)
+            layouts.append(layout)
+            continue
+        png, filters = encode_png_adaptive(px)
         hist += np.bincount(filters, minlength=5)
         (directory / f"{i}.png").write_bytes(png)
-    return {"pixels": pixels, "filters": hist.tolist(), "write_s": time.perf_counter() - t0}
+        pixels.append(px)
+        layouts.append("png filtered")
+    return {"pixels": pixels, "layouts": layouts, "filters": hist.tolist(),
+            "write_s": time.perf_counter() - t0}
 
 
-def decode_check(fid_mod, directory: Path, written: dict, batch: int = 50) -> dict:
-    """A filtered set as the FID loader reads it, in FID batches of 50: the
-    files' bytes, then `decode_pngs`, timed apart; every image must come
-    back exactly as written. ms per image on this host."""
-    from ddgan_torch.utils import decode_pngs
+def decode_check(fid_mod, directory: Path, written: dict, batch: int = 50, Image=None) -> dict:
+    """A real set as the FID loader reads it, in FID batches of 50: the
+    files' bytes, then `decode_images`, timed apart; every image must come
+    back as written where the file is lossless, and, with PIL's `Image`,
+    as this host's PIL decodes it. ms per image on this host, of the
+    set's PNGs alone as well where it mixes layouts (the path a PNG-only
+    folder takes), and by layout (each file decoded alone, in turns with
+    PIL where given)."""
+    from ddgan_torch.utils import decode_images
 
     files = fid_mod.list_image_files(directory)
     files.sort(key=lambda f: int(f.stem))
@@ -1928,25 +2024,53 @@ def decode_check(fid_mod, directory: Path, written: dict, batch: int = 50) -> di
         t0 = time.perf_counter()
         datas = [f.read_bytes() for f in files[k:k + batch]]
         t1 = time.perf_counter()
-        images = decode_pngs(datas)
+        images = decode_images(datas)
         decode_s += time.perf_counter() - t1
         read_s += t1 - t0
-        bad += sum(not np.array_equal(img, px)
-                   for img, px in zip(images, written["pixels"][k:k + batch]))
+        for img, px, data in zip(images, written["pixels"][k:k + batch], datas):
+            wrong = px is not None and not np.array_equal(img, px)
+            if Image is not None:
+                want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+                wrong = wrong or img.shape != want.shape or not np.array_equal(img, want)
+            bad += wrong
     check(bad == 0 and len(files) == len(written["pixels"]),
-          f"{bad} of {len(files)} filtered PNGs decoded wrong")
+          f"{bad} of {len(files)} files of the real set decoded wrong")
+    png = [f for f, layout in zip(files, written["layouts"]) if layout == "png filtered"]
+    png_s = 0.0
+    if 0 < len(png) < len(files):
+        for k in range(0, len(png), batch):
+            datas = [f.read_bytes() for f in png[k:k + batch]]
+            t0 = time.perf_counter()
+            decode_images(datas)
+            png_s += time.perf_counter() - t0
+    by_layout: dict = {}
+    if Image is not None:
+        per: dict = {}
+        for f, layout in zip(files, written["layouts"]):
+            per.setdefault(layout, f.read_bytes())
+        for layout, data in per.items():
+            by_layout[layout] = host_ms_in_turns(
+                {"port": lambda d=data: decode_images([d]),
+                 "pil": lambda d=data: np.asarray(Image.open(io.BytesIO(d)).convert("RGB"))},
+                calls=5)
     return {"files": len(files), "read_s": read_s, "decode_s": decode_s,
             "decode_ms_per_image": 1e3 * decode_s / len(files),
-            "row_filters_0_to_4": written["filters"]}
+            "png_only_ms_per_image": 1e3 * png_s / len(png) if png_s else None,
+            "png_only_files": len(png),
+            "row_filters_0_to_4": written["filters"],
+            "layouts": {k: written["layouts"].count(k) for k in sorted(set(written["layouts"]))},
+            "ms_by_layout": by_layout}
 
 
 def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
     """`python -m ddgan_torch.cli.test_cli --compute_fid` in this process, on
     a temp experiment (content_args.json, netG_1.pth) of the full-width
-    flagship at batch 64, 4,096 samples against 4,096 seeded 32² PNGs
-    filtered as PIL filters them, random Inception weights; the FID's
-    checks and its time split; then the FID loader's decoding of filtered
-    PNGs at 32² and 256²."""
+    flagship at batch 64, 2,304 samples against 2,304 seeded 32² images
+    (PNGs filtered as PIL filters them, every 16th file BMP, PPM, PGM,
+    TIFF, progressive or arithmetic JPEG, or a 16-bit, Adam7 or palette
+    PNG), random Inception weights; the FID's checks and its time split;
+    then the FID loader's decoding of the real set, each file against this
+    host's PIL, and of filtered PNGs at 256²."""
     from ddgan_torch.cli import test_cli
     from ddgan_torch.eval import fid as fid_mod
     from ddgan_torch.eval import inception as inc
@@ -1957,7 +2081,9 @@ def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
         (exp / "content_args.json").write_text(json.dumps(cfg.replace(exp="fid").to_dict()))
         torch.save(gen_sd, exp / "netG_1.pth")
         real = tmp / "real"
-        real_set = write_filtered_set(real, FID_SAMPLES, 32, seed=30)
+        from PIL import Image
+
+        real_set = write_filtered_set(real, FID_SAMPLES, 32, seed=30, Image=Image)
         cwd = os.getcwd()
         os.chdir(tmp)
         try:
@@ -2005,7 +2131,7 @@ def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
             check(abs(self_fid) <= 1e-3 * trace, f"self-FID {self_fid}, trace(sigma) {trace}")
             # the FID loader on PIL-style filtered PNGs: the real set, and a
             # CelebA-HQ-sized one
-            decode = {"32": decode_check(fid_mod, real, real_set)}
+            decode = {"32": decode_check(fid_mod, real, real_set, Image=Image)}
             decode["256"] = decode_check(fid_mod, tmp / "real256", write_filtered_set(
                 tmp / "real256", DECODE_256_IMAGES, 256, seed=31))
         finally:
@@ -2030,10 +2156,16 @@ def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
           f"({sw.n['inception']} batches, with the copies); Fréchet distance (sqrtm) "
           f"{sw.s['frechet_sqrtm']:.3f} ({sw.n['frechet_sqrtm']} calls)")
     for side, d in decode.items():
-        print(f"filtered PNG decoding at {side}², FID batches of 50: {d['files']} files, "
-              f"decode_pngs {d['decode_s']:.3f} s = {d['decode_ms_per_image']:.3f} ms an image "
-              f"(reading the files {d['read_s']:.3f} s apart; rows by filter 0-4 "
-              f"{d['row_filters_0_to_4']}), every image exact")
+        print(f"real-set decoding at {side}², FID batches of 50: {d['files']} files "
+              f"({d['layouts']}), decode_images {d['decode_s']:.3f} s = "
+              f"{d['decode_ms_per_image']:.3f} ms an image (reading the files {d['read_s']:.3f} "
+              f"s apart; PNG rows by filter 0-4 {d['row_filters_0_to_4']}), every image exact")
+        if d["png_only_ms_per_image"] is not None:
+            print(f"  its {d['png_only_files']} PNGs alone, FID batches of 50: "
+                  f"{d['png_only_ms_per_image']:.3f} ms an image")
+        for layout, ms in d["ms_by_layout"].items():
+            print(f"  {layout}: {ms['port']:.3f} ms an image (port), {ms['pil']:.3f} (PIL), "
+                  "each file alone, on this host")
     return out
 
 
@@ -2513,12 +2645,15 @@ class _ErrorLog(logging.Handler):
         self.records.append(record.getMessage()[:2000])
 
 
-def hpo_search(fir2x, pair_conv) -> dict:
+HPO_ITERS = 2  # steps an epoch of each HPO evaluation (R1 at step 0)
+
+
+def hpo_search(fir2x, pair_conv, iters: int = HPO_ITERS) -> dict:
     """`python -m ddgan_torch.pso.cli` in this process, in a directory that
     holds copies of the repository's configs/config.json (dataset switched
     to synthetic, the rest as shipped) and configs/search_space_params.json:
-    2 particles x 2 iterations of 4 steps with combined scoring; the
-    pso-optim preset, 2 particles x 1 iteration; one evaluation in a
+    2 particles x 2 iterations of `iters` steps an epoch with combined scoring; the
+    pso-optim preset, 1 particle x 1 iteration; one evaluation in a
     subprocess. Every evaluation must train to its end: no evaluation
     logs a failure, each leaves a losses.json of its epochs and a finite
     final_loss.txt for its scorer (read by a spy on the scorers), and each
@@ -2533,11 +2668,10 @@ def hpo_search(fir2x, pair_conv) -> dict:
     repo_cfg = ROOT / "configs" / "config.json"
     sha0 = _sha256(repo_cfg)
     shipped = json.loads(repo_cfg.read_text())
-    iters = 4
     runs = {"search": (["--num_particles", "2", "--num_iterations", "2",
                         "--limited_iteration_mode", str(iters), "--scoring", "combined",
                         "--eval_mode", "inprocess"], 1),
-            "pso_optim": (["--preset", "pso-optim", "--num_particles", "2", "--num_iterations",
+            "pso_optim": (["--preset", "pso-optim", "--num_particles", "1", "--num_iterations",
                            "1", "--limited_iteration_mode", str(iters)], 5),
             "subprocess": (["--num_particles", "1", "--num_iterations", "1",
                             "--limited_iteration_mode", str(iters), "--eval_mode", "subprocess"],
@@ -3085,7 +3219,7 @@ def legacy_on_card(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # data parallelism (ddgan_torch.parallel, train/zero1.py) on the one card
-PARALLEL_ITERS = 4  # steps an epoch of phase 46's two ranks (R1 at step 0)
+PARALLEL_ITERS = 2  # steps an epoch of phase 46's two ranks (R1 at step 0)
 PARALLEL_BOUNDS = dict(rtol=3e-4, atol=3e-5)  # ZeRO-1 against replicated (tests/test_zero1.py)
 # past the first bf16 step, the share of weight and EMA elements that may lie
 # beyond PARALLEL_BOUNDS: about 5x the 1,012 of 109M (9.3e-6) measured after
@@ -3679,8 +3813,9 @@ def host_ms_in_turns(fns: dict, calls: int = HOST_TIMING_CALLS) -> dict:
 
 def jpeg_against_pil(Image) -> dict:
     """The port's JPEG decoder against PIL on this host: every file of
-    `jpeg_cases` bit for bit (no case has a bound), a progressive file
-    refused naming item 13; the ms per 256² q95 4:2:0 image of each."""
+    `jpeg_cases` bit for bit (no case has a bound), and a progressive file
+    (refused before the decoder read them, now decoded as PIL decodes it);
+    the ms per 256² q95 4:2:0 image of each."""
     from ddgan_torch.data.jpeg import decode_jpeg
 
     cases = jpeg_cases(Image)
@@ -3694,18 +3829,15 @@ def jpeg_against_pil(Image) -> dict:
     buf = io.BytesIO()
     Image.fromarray(smooth_field(np.random.RandomState(0), 32, 32, 3)).save(
         buf, "JPEG", quality=80, progressive=True)
-    try:
-        decode_jpeg(buf.getvalue())
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    check("item 13" in refused, f"a progressive JPEG was not refused naming item 13: {refused!r}")
+    progressive = decode_jpeg(buf.getvalue())
+    check(np.array_equal(progressive, np.asarray(Image.open(io.BytesIO(buf.getvalue())))),
+          "a progressive JPEG decodes unlike PIL")
     data = pil_jpeg(Image, np.random.RandomState(48), 256, 256, "4:2:0", quality=95)
     ms = host_ms_in_turns({"port": lambda: decode_jpeg(data),
                            "pil": lambda: np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))})
     print(f"JPEG decoder: {len(cases)} PIL files bit for bit ({len(JPEG_SIZES)} sizes x "
           f"{len(JPEG_QUALITIES)} qualities x {len(JPEG_LAYOUTS)} layouts, and optimized tables "
-          f"and restart markers in each layout); a progressive file refused; 256² q95 4:2:0 "
+          f"and restart markers in each layout); a progressive file as PIL; 256² q95 4:2:0 "
           f"{ms['port']:.3f} ms an image (port), {ms['pil']:.3f} ms (PIL), on this host")
     return {"files": len(cases), "exact": len(cases), "ms_256_q95_420": ms}
 
@@ -3773,18 +3905,50 @@ def toy_image_wh(rng, w: int, h: int) -> np.ndarray:
     return np.clip(img, 0.0, 1.0)
 
 
-def write_custom_jpegs(Image, data_dir: Path, n: int, w: int, h: int, seed: int) -> float:
+# phase 48's JPEG codings: (coding, files of CUSTOM_IMAGES)
+CUSTOM_KINDS = {"baseline": 32, "progressive": 16, "arithmetic": 8, "arithmetic progressive": 8}
+
+
+def write_custom_jpegs(Image, data_dir: Path, n: int, w: int, h: int, seed: int,
+                       kinds: list | None = None) -> float:
     """`custom`'s layout, data_dir/train/imgs/*.jpg: n seeded toy images at
-    w x h written at q95 as `tools/quality_soak256.py:61` writes them.
-    Returns the seconds it took."""
+    w x h written at q95 as `tools/quality_soak256.py:61` writes them, file
+    i in the coding kinds[i] (baseline if None: PIL's; progressive: PIL's
+    scan script; arithmetic, sequential or progressive: PIL's baseline file
+    re-encoded by the tests' `_torch_jpeg_arith`). Returns the seconds it
+    took."""
+    arith = tests_helper("_torch_jpeg_arith") if kinds else None
     t0 = time.perf_counter()
     folder = data_dir / "train" / "imgs"
-    folder.mkdir(parents=True)
+    folder.mkdir(parents=True, exist_ok=True)
     for i in range(n):
         rng = np.random.RandomState(seed * 7_000_003 + i)
         arr = (toy_image_wh(rng, w, h) * 255).astype(np.uint8)
-        Image.fromarray(arr).save(folder / f"img_{i:05d}.jpg", quality=95)
+        kind = kinds[i] if kinds else "baseline"
+        buf = io.BytesIO()
+        Image.fromarray(arr).save(buf, "JPEG", quality=95, progressive=kind == "progressive")
+        data = buf.getvalue()
+        if kind.startswith("arithmetic"):
+            data = arith.to_arithmetic(data, progressive=kind.endswith("progressive"))
+        (folder / f"img_{i:05d}.jpg").write_bytes(data)
     return time.perf_counter() - t0
+
+
+def custom_kinds(first: list, n: int, seed: int) -> list:
+    """The coding of each of n files: CUSTOM_KINDS' counts, one of each
+    kind at the indices `first` (the loader's batch 0), the rest drawn."""
+    kinds = [k for k, c in CUSTOM_KINDS.items() for _ in range(c)]
+    check(len(kinds) == n and len(first) >= len(CUSTOM_KINDS),
+          f"{len(kinds)} codings for {n} files, batch 0 of {len(first)}")
+    out = [None] * n
+    order = list(CUSTOM_KINDS)
+    for i, kind in zip(first, order):
+        out[i] = kind
+        kinds.remove(kind)
+    rest = [i for i in range(n) if out[i] is None]
+    for i, kind in zip(rest, np.random.RandomState(seed).permutation(kinds)):
+        out[i] = str(kind)
+    return out
 
 
 def pil_reference_items(Image, files, size: int) -> np.ndarray:
@@ -3826,21 +3990,33 @@ def loader_seconds(loader, epoch: int, n: int) -> tuple[list, list]:
 
 def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict) -> dict:
     """The CelebA-HQ 256 recipe on `custom` through `main_cli` (phase 28's
-    run and checks, with --data_dir): 64 seeded 320 x 288 JPEGs, do_resize
-    (284 x 256), ToTensor, Normalize and CenterCrop (256²); then the loop's
-    loader alone: batch 0 of epoch 0 against the same files decoded by PIL
+    run and checks, with --data_dir): 64 seeded 320 x 288 JPEGs (32
+    baseline, 16 progressive, 8 arithmetic-coded sequential and 8
+    progressive, batch 0 holding one of each: a set that covers the
+    codings, not a mix users are known to send), do_resize (284 x 256),
+    ToTensor, Normalize and CenterCrop (256²); then the loop's loader
+    alone: batch 0 of epoch 0 against the same files decoded by PIL
     through the JAX package's transform arithmetic (<= 1e-6), and seconds
-    per batch over an epoch."""
+    per batch over an epoch, on that set and on the same 64 images all
+    baseline (the files PIL and cameras write most)."""
     from ddgan_torch.data import make_dataset
     from ddgan_torch.train.loop import build_loader
 
     with tempfile.TemporaryDirectory() as data_tmp:
         data = Path(data_tmp) / "custom"
-        write_s = write_custom_jpegs(Image, data, CUSTOM_IMAGES, CUSTOM_W, CUSTOM_H, seed=48)
         cfg = cfg2.replace(dataset="custom", data_dir=str(data), mode="train", do_resize="yes",
                            to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes",
                            exp="celeba256_custom", batch_size=TRAIN_BATCH_256,
                            limited_iter=CUSTOM_ITERS, num_epoch=1, save_ckpt_every=1)
+        # batch 0's indices depend on the file count only: draw the codings so
+        # that it holds one file of each
+        write_custom_jpegs(Image, data, CUSTOM_IMAGES, 8, 8, seed=48)
+        probe = build_loader(cfg, make_dataset(cfg), cfg.batch_size)
+        probe.set_epoch(0)
+        kinds = custom_kinds([int(i) for i in probe._indices()[:cfg.batch_size]],
+                             CUSTOM_IMAGES, seed=48)
+        write_s = write_custom_jpegs(Image, data, CUSTOM_IMAGES, CUSTOM_W, CUSTOM_H, seed=48,
+                                     kinds=kinds)
         run = loop_through_main_cli(cfg, bare, fir2x, pair_conv,
                                     k2_per_step={"forward": 46, "dx": 18, "dx_library": 5},
                                     sample_launches=sample_launches,
@@ -3849,22 +4025,34 @@ def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict)
         loader = build_loader(cfg, ds, cfg.batch_size)
         loader.set_epoch(0)
         first = [ds.images_all[i] for i in loader._indices()[:cfg.batch_size]]
+        first_kinds = [kinds[int(i)] for i in loader._indices()[:cfg.batch_size]]
+        check(sorted(first_kinds) == sorted(CUSTOM_KINDS), f"batch 0 holds {first_kinds}")
         times, images = loader_seconds(loader, 0, len(loader))
+        base = Path(data_tmp) / "baseline"
+        write_custom_jpegs(Image, base, CUSTOM_IMAGES, CUSTOM_W, CUSTOM_H, seed=48)
+        base_cfg = cfg.replace(data_dir=str(base))
+        base_times, _ = loader_seconds(build_loader(base_cfg, make_dataset(base_cfg),
+                                                    cfg.batch_size), 0, len(loader))
         want = pil_reference_items(Image, first, cfg.image_size)
         err = float(np.abs(images[0] - want).max())
         check(images[0].shape == (cfg.batch_size, cfg.image_size, cfg.image_size, 3)
               and err <= 1e-6,
               f"custom batch 0 {images[0].shape} against PIL and the JAX transforms: {err}")
-    s_per_batch = float(np.mean(times))
+    s_per_batch, base_s = float(np.mean(times)), float(np.mean(base_times))
     bare_ms = run["bare_after"]["plain_step"]
-    print(f"custom at 256²: {CUSTOM_IMAGES} JPEGs written in {write_s:.2f} s; batch 0 against "
-          f"PIL + the JAX transforms max-abs {err!r}; loader {1e3 * s_per_batch:.1f} ms a batch "
-          f"of {cfg.batch_size} (decode, resize to 284x256, ToTensor, Normalize, crop; "
-          f"{len(times)} batches, one thread) beside the bare bf16 step {bare_ms:.1f} ms "
-          f"({100 * 1e3 * s_per_batch / bare_ms:.1f}% of it)")
-    return {**run, "jpeg_write_s": write_s, "batch0_max_abs": err,
+    print(f"custom at 256²: {CUSTOM_IMAGES} JPEGs ({CUSTOM_KINDS}) written in {write_s:.2f} s; "
+          f"batch 0 ({first_kinds}) against "
+          f"PIL + the JAX transforms max-abs {err!r}; loader (decode, resize to 284x256, "
+          f"ToTensor, Normalize, crop; {len(times)} batches of {cfg.batch_size}, one thread) "
+          f"beside the bare bf16 step {bare_ms:.1f} ms: all baseline {1e3 * base_s:.1f} ms a "
+          f"batch ({100 * 1e3 * base_s / bare_ms:.1f}% of it), the coverage set "
+          f"{1e3 * s_per_batch:.1f} ms ({100 * 1e3 * s_per_batch / bare_ms:.1f}%)")
+    return {**run, "jpeg_write_s": write_s, "batch0_max_abs": err, "batch0_kinds": first_kinds,
+            "kinds": {k: kinds.count(k) for k in CUSTOM_KINDS},
             "loader_s_per_batch": s_per_batch, "loader_batch_s": times,
-            "loader_share_of_bare_step": 1e3 * s_per_batch / bare_ms}
+            "loader_share_of_bare_step": 1e3 * s_per_batch / bare_ms,
+            "baseline_loader_s_per_batch": base_s,
+            "baseline_loader_share_of_bare_step": 1e3 * base_s / bare_ms}
 
 
 def write_luna_volumes(write_nifti, data_dir: Path, mask_dir: Path, side: int, nodule_z,
@@ -3992,9 +4180,9 @@ TRAIN_BATCH_LSUN = 8  # the LSUN Church 256 recipe's batch per GPU (tools/bench_
 CELEBA_LMDB_ENTRIES = 27_000  # `num_samples('celeba', True)`
 CELEBA_JPEGS = 64
 CELEBA_ITEMS = [0, 9, 10, 13_500, 26_999]
-REMAT_TIMED_STEPS = 9
+REMAT_TIMED_STEPS = 5
 RANKS = 2
-RANKS_FID_SAMPLES = 1024
+RANKS_FID_SAMPLES = 256
 RANKS_PLAIN_BATCH = 63
 
 
@@ -4324,7 +4512,7 @@ def remat_on_card(cfg, dev, fir2x, pair_conv) -> dict:
     draws, cuDNN deterministic: G's gradients and weights, the EMA and D's
     weights equal to the remat-free run bit for bit; launches by role
     (the recompute term under "full", K1's under both), and under
-    "save-convs" as many conv runs as without remat; then nine R1-free steps
+    "save-convs" as many conv runs as without remat; then five R1-free steps
     of each in turns (the order rotating), ms and the peak memory above the
     resident state."""
     from ddgan_torch.models import NCSNpp, build_discriminator
@@ -4449,8 +4637,8 @@ def sampler_cli_over_ranks(cfg, gen_sd, dev) -> dict:
     gloo ranks sharing the card, spawned by `parallel.launch` and meeting
     through a `file://` rendezvous, as phase 46 runs them) on a
     full-width flagship experiment whose saved args say 8 processes over
-    gloo: with --compute_fid, 1,024 samples at 64 a rank
-    against 1,024 seeded 32² PNGs (random Inception weights): every {i}.png
+    gloo: with --compute_fid, 256 samples at 64 a rank
+    against 256 seeded 32² PNGs (random Inception weights): every {i}.png
     equal to a one-process emulation of the two ranks (rank r's generator
     seeded with seed + r, calls in turn), the FID printed once and written
     once after the last PNG; then plain sampling with batch 63 over the two
@@ -4585,6 +4773,87 @@ def webp_against_pil(Image) -> dict:
             "ctypes_libwebp": libwebp, "files": len(files), "exact": len(files),
             "encoder_files": encoder, "malformed_refused": len(lw.BROKEN),
             "ms_341x256_lossy": ms, "timed_bytes": len(data)}
+
+
+# ---------------------------------------------------------------------------
+# BMP, Netpbm, TIFF, progressive / arithmetic / CMYK JPEG, PNG at every depth
+def image_formats_against_pil(Image, smi: str) -> dict:
+    """The port's readers against PIL on this host through
+    `utils.decode_images`: every file of the tests' matrices
+    (`tests/_torch_imagewriters.py`, loaded by path with
+    `tests/_torch_jpeg_arith.py`: PNG at every colour type and depth, Adam7
+    or not; BMP; PBM/PGM/PPM; TIFF; progressive, arithmetic-coded, CMYK,
+    YCCK and RGB-coded JPEG; files PIL writes among them) bit for bit (no
+    case has a bound); every malformed file raising ValueError, every
+    layout still refused raising NotImplementedError naming item 13i; then
+    ms per 256² image, the port's and PIL's, in turns on this host's clock:
+    a q95 4:2:0 JPEG baseline, progressive and arithmetic-coded (the same
+    coefficients), an LZW TIFF, a 24-bit BMP and a 16-bit PNG of one image."""
+    import PIL
+    from PIL import features
+
+    from ddgan_torch.utils import decode_images, image_format
+
+    writers, arith = tests_helper("_torch_imagewriters"), tests_helper("_torch_jpeg_arith")
+    print(f"PIL {PIL.__version__}, its libjpeg {features.version('jpg')}, libtiff "
+          f"{features.version('libtiff')}, zlib {features.version('zlib')}")
+    t0 = time.perf_counter()
+    files = (writers.png_matrix(Image) + writers.bmp_matrix(Image)
+             + writers.netpbm_matrix(Image) + writers.tiff_matrix(Image)
+             + writers.jpeg_matrix(Image, arith))
+    write_s = time.perf_counter() - t0
+    bad, by_format = [], {}
+    for label, data in files:
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        got = decode_images([data])[0]
+        by_format[image_format(data)] = by_format.get(image_format(data), 0) + 1
+        if got.shape != want.shape or not np.array_equal(got, want):
+            bad.append(label)
+    check(not bad, f"the readers differ from PIL on {len(bad)} of {len(files)} files: {bad[:20]}")
+    kept, raised = [], []
+    for label, data in writers.broken(Image).items():
+        try:
+            decode_images([data])
+            kept.append(label)
+        except ValueError:
+            pass
+    for label, data in writers.refused(Image).items():
+        try:
+            decode_images([data])
+            raised.append(f"{label}: read")
+        except NotImplementedError as e:
+            if "item 13i" not in str(e):
+                raised.append(f"{label}: {e}")
+    check(not kept, f"malformed files decoded without a ValueError: {kept}")
+    check(not raised, f"refused layouts not refused naming item 13i: {raised}")
+    rs = np.random.RandomState(56)
+    arr = smooth_field(rs, 256, 256, 3)
+    baseline = pil_jpeg(Image, np.random.RandomState(48), 256, 256, "4:2:0", quality=95)
+    timed = {
+        "jpeg baseline": baseline,
+        "jpeg progressive": writers.pil_jpeg(Image, np.random.RandomState(48), 256, 256, "4:2:0",
+                                             quality=95, progressive=True),
+        "jpeg arithmetic": arith.to_arithmetic(baseline),
+        "tiff LZW": writers.tiff(arr, photometric=2, compression=5),
+        "bmp 24-bit": writers.bmp(arr, 24),
+        "png 16-bit": writers.png(arr.astype(np.uint16) * 257, 2, 16),
+    }
+    fns = {}
+    for name, data in timed.items():
+        fns[f"{name} port"] = lambda d=data: decode_images([d])
+        fns[f"{name} pil"] = lambda d=data: np.asarray(Image.open(io.BytesIO(d)).convert("RGB"))
+    ms = host_ms_in_turns(fns)
+    ms = {name: {"port": ms[f"{name} port"], "pil": ms[f"{name} pil"], "bytes": len(d)}
+          for name, d in timed.items()}
+    print(f"image formats: {len(files)} files bit for bit against PIL ({by_format}; written in "
+          f"{write_s:.1f} s), {len(writers.broken(Image))} malformed files refused with "
+          f"ValueError, {len(writers.refused(Image))} layouts refused naming item 13i")
+    print(f"ms a 256² image on this host ({smi}): " + "; ".join(
+        f"{k} {v['port']:.3f} (port) / {v['pil']:.3f} (PIL)" for k, v in ms.items()))
+    return {"pil": PIL.__version__, "pil_libjpeg": features.version("jpg"),
+            "pil_libtiff": features.version("libtiff"), "files": len(files), "exact": len(files),
+            "by_format": by_format, "malformed_refused": len(writers.broken(Image)),
+            "refused_13i": len(writers.refused(Image)), "write_s": write_s, "ms_256": ms}
 
 
 def main() -> int:
@@ -5278,7 +5547,12 @@ def main() -> int:
           f"{100 * lmdb_runs['lsun256']['loader_share_of_bare_step']:.1f}%")
     torch.cuda.empty_cache()
 
-    phase("56 result")
+    phase("56 BMP, PBM/PGM/PPM, TIFF, progressive and arithmetic JPEG, PNG at every depth "
+          "against PIL on this host: the tests' matrices, malformed and refused files, ms an "
+          "image")
+    image_files["formats"] = image_formats_against_pil(Image, smi)
+
+    phase("57 result")
     main_paths = {"flagship_cli": main_launches, "celeba256_cli": main256_launches,
                   "flagship_compute_fid": evals["compute_fid"]["launches"],
                   "celeba256_inception_score": evals["inception_score"]["launches"],

@@ -1,22 +1,33 @@
-// Baseline JPEG decoder with libjpeg-turbo's arithmetic, behind a plain C
-// interface (bound with ctypes by ddgan_torch/data/jpeg.py).
+// JPEG decoder with libjpeg-turbo's arithmetic, behind a plain C interface
+// (bound with ctypes by ddgan_torch/data/jpeg.py).
 //
 // It gives the pixels that PIL's `Image.open(f)` gives (libjpeg-turbo with
 // its defaults: the ISLOW integer IDCT and fancy upsampling) for the files
 // it reads:
-//   * SOF0 / SOF1 with 8-bit samples, Huffman-coded, in one interleaved
-//     scan (what libjpeg and PIL write) or one scan per component (the
-//     grey files' case; a 3-component file split into scans follows the
-//     same rule but no file of that kind is tested);
-//   * DQT tables of 8 or 16 bits, DHT tables, DRI with RST markers;
-//   * 1 component (grey), or 3 components in YCbCr with the luma at 1x1,
-//     2x1 or 2x2 and the chroma at 1x1 (4:4:4, 4:2:2, 4:2:0);
+//   * 8-bit samples, in sequential Huffman (SOF0 / SOF1), progressive
+//     Huffman (SOF2), sequential arithmetic (SOF9) or progressive
+//     arithmetic (SOF10) coding: one interleaved scan, one scan per
+//     component, or any progressive scan script (DC first and refine, AC
+//     first and refine with EOB runs, successive approximation), the
+//     coefficients gathered over every scan before the IDCT;
+//   * DQT tables of 8 or 16 bits, DHT tables, DAC conditioning, DRI with
+//     RST markers (the arithmetic statistics reset at each);
+//   * 1 component (grey); 3 in YCbCr, or RGB-coded (an Adobe marker with
+//     transform 0, or component IDs 'R', 'G', 'B', as jdapimin.c decides),
+//     which take no colour transform; 4 in CMYK or YCCK (Adobe transform
+//     0 or 2), returned inverted as PIL's "CMYK;I" raw mode returns them;
+//     each component at the largest sampling or at half of it across, or
+//     across and down (4:4:4, 4:2:2, 4:2:0);
 //   * any width and height, multiples of the MCU or not.
-// Progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-// samples, other component counts, RGB-coded 3-component files and other
-// sampling layouts are refused (return code 1); malformed files return 2.
+// Lossless (SOF3), hierarchical (SOF5-7, SOF13-15) and 12-bit files, other
+// component counts and sampling layouts, and a progressive file whose scans
+// leave one of its first ten coefficients short of bit 0 (libjpeg-turbo
+// smooths such blocks, jdcoefct.c decompress_smooth_data) are refused
+// (return code 1); malformed files return 2.
 //
 // The arithmetic is libjpeg-turbo's, step for step:
+//   * jdhuff.c / jdphuff.c for Huffman, jdarith.c for arithmetic decoding
+//     (with T.81 Table D.2's Qe table, jaricom.c's jpeg_aritab);
 //   * jidctint.c's jpeg_idct_islow: CONST_BITS 13, PASS1_BITS 2, int64
 //     products, the post-IDCT range-limit table indexed with RANGE_MASK.
 //     (libjpeg-turbo's SIMD IDCT saturates where the table wraps; the two
@@ -26,7 +37,8 @@
 //     its alternating rounding bias, the first and last sample rows
 //     replicated at the component's real height), used when the
 //     component's width is above 2 samples; otherwise box replication.
-//   * jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16).
+//   * jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16), and its YCCK -> CMYK
+//     (255 minus the RGB of Y, Cb, Cr, clamped; K as it is).
 //
 // Build: c++ -O2 -std=c++17 -shared -fPIC (ddgan_torch/ops/_cxx.py).
 
@@ -58,6 +70,27 @@ const int kNaturalOrder[64 + 16] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// T.81 Table D.2 as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed bin (Qe 0x5a1d)
+const int64_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617, 0x00e50719,
+    0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09, 0x00030d0a, 0x00010d0c,
+    0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227, 0x17b91328, 0x1182142a, 0x0cef152b,
+    0x09a1162d, 0x072f172e, 0x055c1830, 0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36,
+    0x01441d38, 0x00f51e39, 0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320,
+    0x002c0921, 0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d, 0x0861314e,
+    0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633, 0x02d43734, 0x025c3835,
+    0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39, 0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d,
+    0x008f203d, 0x5b1241c1, 0x4d044250, 0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654,
+    0x23794756, 0x1edf4857, 0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a,
+    0x0d514e4b, 0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f, 0x44d95b60,
+    0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df, 0x4f466165, 0x47e56266,
+    0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669, 0x4c0f676a, 0x4639686b, 0x415e6367,
+    0x56276ae9, 0x50e76b6c, 0x4b85676d, 0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70,
+    0x59eb6ff0, 0x5a1d7171};
+
 struct Huffman {
     bool defined = false;
     int32_t maxcode[18];   // largest code of each length, -1 if none
@@ -71,6 +104,9 @@ struct Component {
     int width = 0, height = 0;         // real (downsampled) samples
     int blocks_w = 0, blocks_h = 0;    // blocks held in the plane
     std::vector<uint8_t> plane;        // blocks_h*8 rows of blocks_w*8 samples
+    std::vector<int16_t> coef;         // progressive: every block's 64 coefficients
+    uint16_t q[64];                    // the DQT table latched at its first scan
+    int coef_bits[64];                 // progressive: the last Al of each coefficient
     bool seen = false;
 };
 
@@ -82,16 +118,24 @@ struct Decoder {
     uint16_t qt[4][64];  // natural order
     bool qt_defined[4] = {false, false, false, false};
     Huffman dc[4], ac[4];
+    uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
     int restart_interval = 0;
     bool saw_jfif = false, saw_adobe = false;
     int adobe_transform = -1;
 
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
     int mcux = 0, mcuy = 0;
+    bool progressive = false, arithmetic = false;
     Component comp[4];
     bool frame = false;
 
-    Decoder(const uint8_t* d, size_t n) : data(d), size(n) {}
+    Decoder(const uint8_t* d, size_t n) : data(d), size(n) {
+        for (int i = 0; i < 16; ++i) {  // jdarith.c / jdmaster.c defaults
+            arith_dc_L[i] = 0;
+            arith_dc_U[i] = 1;
+            arith_ac_K[i] = 5;
+        }
+    }
 
     uint8_t byte() {
         if (pos >= size) malformed("the file ends inside a marker segment");
@@ -155,19 +199,39 @@ struct Decoder {
         }
     }
 
+    // jdmarker.c get_dac
+    void read_dac(size_t end) {
+        while (pos < end) {
+            int index = byte(), val = byte();
+            if (index >= 32) malformed("a DAC table index past 31");
+            if (index >= 16) {
+                arith_ac_K[index - 16] = static_cast<uint8_t>(val);
+            } else {
+                arith_dc_L[index] = static_cast<uint8_t>(val & 15);
+                arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+                if (arith_dc_L[index] > arith_dc_U[index]) malformed("a DAC DC value with L > U");
+            }
+        }
+    }
+
     void read_sof(int marker) {
         if (frame) malformed("two frames in one file");
         int precision = byte();
         height = u16();
         width = u16();
         ncomp = byte();
-        if (marker == 0xC3) unsupported("a lossless JPEG");
-        if (marker >= 0xC5 && marker <= 0xC7) unsupported("a hierarchical JPEG");
-        if (marker >= 0xC8) unsupported("an arithmetic-coded JPEG");
+        if (marker == 0xC3 || marker == 0xCB) unsupported("a lossless JPEG");
+        if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
+            unsupported("a hierarchical JPEG");
+        progressive = marker == 0xC2 || marker == 0xCA;
+        arithmetic = marker >= 0xC9;
         if (precision != 8) unsupported(std::to_string(precision) + "-bit samples");
         if (height == 0) unsupported("a height given by a DNL marker");
         if (width == 0) malformed("width 0");
-        if (ncomp != 1 && ncomp != 3) unsupported(std::to_string(ncomp) + " components");
+        if (static_cast<int64_t>(width) * height > (int64_t(1) << 28))
+            malformed("an image of more than 2^28 pixels");
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4)
+            unsupported(std::to_string(ncomp) + " components");
         for (int i = 0; i < ncomp; ++i) {
             Component& c = comp[i];
             c.id = byte();
@@ -187,12 +251,23 @@ struct Decoder {
             c.height = (height * c.v + vmax - 1) / vmax;
             c.blocks_w = mcux * c.h;
             c.blocks_h = mcuy * c.v;
-            c.plane.assign(static_cast<size_t>(c.blocks_w) * 8 * c.blocks_h * 8, 0);
+            for (int k = 0; k < 64; ++k) c.coef_bits[k] = -1;
         }
         frame = true;
     }
 
-    // ------------------------------------------------------------ entropy
+    // planes (and, for a progressive file, coefficients) once the frame
+    // header has passed the checks of a headers-only call
+    void allocate() {
+        for (int i = 0; i < ncomp; ++i) {
+            Component& c = comp[i];
+            const size_t blocks = static_cast<size_t>(c.blocks_w) * c.blocks_h;
+            c.plane.assign(blocks * 64, 0);
+            if (progressive) c.coef.assign(blocks * 64, 0);
+        }
+    }
+
+    // ------------------------------------------------- Huffman bit reader
     uint64_t bitbuf = 0;
     int bitcount = 0;
     bool hit_marker = false;
@@ -245,13 +320,133 @@ struct Decoder {
 
     static int extend(int v, int s) { return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v; }
 
-    void restart() {
-        bitbuf = 0;
-        bitcount = 0;
-        hit_marker = false;
-        while (pos + 1 < size && !(data[pos] == 0xFF && data[pos + 1] != 0x00)) ++pos;
-        int m = next_marker();
-        if (m < 0xD0 || m > 0xD7) malformed("expected an RST marker");
+    // --------------------------------------------- arithmetic decoder
+    // jdarith.c: the C and A registers, the bit shift counter, a marker met
+    int64_t ac_c = 0, ac_a = 0;
+    int ac_ct = -16;
+    int unread_marker = 0;
+    size_t marker_pos = 0;  // where the 0xFF of the unread marker is
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    uint8_t fixed_bin[4] = {113, 0, 0, 0};
+    int dc_context[4] = {0, 0, 0, 0};
+
+    int arith_byte() {
+        if (unread_marker) return 0;
+        if (pos >= size) malformed("the file ends inside its entropy-coded data");
+        int d = data[pos++];
+        if (d == 0xFF) {
+            size_t ff = pos - 1;
+            do {
+                if (pos >= size) malformed("the file ends inside its entropy-coded data");
+                d = data[pos++];
+                if (d == 0xFF) ff = pos - 1;
+            } while (d == 0xFF);
+            if (d == 0) return 0xFF;  // a stuffed zero
+            unread_marker = d;  // a marker: zeros from here on
+            marker_pos = ff;
+            return 0;
+        }
+        return d;
+    }
+
+    int arith_decode(uint8_t* st) {
+        while (ac_a < 0x8000) {  // renormalisation and input, section D.2.6
+            if (--ac_ct < 0) {
+                ac_c = (ac_c << 8) | arith_byte();
+                if ((ac_ct += 8) < 0) {
+                    if (++ac_ct == 0) ac_a = 0x8000;  // the two initial bytes are in
+                }
+            }
+            ac_a <<= 1;
+        }
+        int sv = *st;
+        int64_t qe = kAritab[sv & 0x7F];
+        int nl = static_cast<int>(qe & 0xFF);
+        qe >>= 8;
+        int nm = static_cast<int>(qe & 0xFF);
+        qe >>= 8;
+        int64_t temp = ac_a - qe;
+        ac_a = temp;
+        temp <<= ac_ct;
+        if (ac_c >= temp) {
+            ac_c -= temp;
+            if (ac_a < qe) {
+                ac_a = qe;
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+            } else {
+                ac_a = qe;
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (ac_a < 0x8000) {
+            if (ac_a < qe) {
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+
+    // a DC difference (figures F.19-F.24); updates the component's context
+    int arith_dc_diff(int tbl, int ci) {
+        uint8_t* st = dc_stats[tbl] + dc_context[ci];
+        if (arith_decode(st) == 0) {
+            dc_context[ci] = 0;
+            return 0;
+        }
+        int sign = arith_decode(st + 1);
+        st += 2 + sign;
+        int m = arith_decode(st);
+        if (m != 0) {
+            st = dc_stats[tbl] + 20;
+            while (arith_decode(st)) {
+                if ((m <<= 1) == 0x8000) malformed("an arithmetic-coded magnitude overflows");
+                st += 1;
+            }
+        }
+        if (m < static_cast<int>((1L << arith_dc_L[tbl]) >> 1))
+            dc_context[ci] = 0;
+        else if (m > static_cast<int>((1L << arith_dc_U[tbl]) >> 1))
+            dc_context[ci] = 12 + sign * 4;
+        else
+            dc_context[ci] = 4 + sign * 4;
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(st)) v |= m;
+        v += 1;
+        return sign ? -v : v;
+    }
+
+    // an AC value's sign, category and magnitude from bin S0 + 2 (st) on
+    int arith_ac_value(int tbl, int k, uint8_t* st) {
+        int sign = arith_decode(fixed_bin);
+        st += 2;
+        int m = arith_decode(st);
+        if (m != 0) {
+            if (arith_decode(st)) {
+                m <<= 1;
+                st = ac_stats[tbl] + (k <= arith_ac_K[tbl] ? 189 : 217);
+                while (arith_decode(st)) {
+                    if ((m <<= 1) == 0x8000) malformed("an arithmetic-coded magnitude overflows");
+                    st += 1;
+                }
+            }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (arith_decode(st)) v |= m;
+        v += 1;
+        return sign ? -v : v;
+    }
+
+    void arith_reset() {
+        ac_c = 0;
+        ac_a = 0;
+        ac_ct = -16;
     }
 
     // -------------------------------------------------------------- IDCT
@@ -380,8 +575,22 @@ struct Decoder {
 
     // ------------------------------------------------------------- scans
     int last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    int scan_ns = 0, scan_idx[4] = {0, 0, 0, 0};
+    int ss = 0, se = 63, ah = 0, al = 0;
 
-    void decode_block(Component& c, int bx, int by, int ci) {
+    int16_t* coef_at(Component& c, int bx, int by) {
+        return c.coef.data() + (static_cast<size_t>(by) * c.blocks_w + bx) * 64;
+    }
+
+    void idct_block(Component& c, const int16_t* coef, int bx, int by) {
+        const size_t stride = static_cast<size_t>(c.blocks_w) * 8;
+        idct_islow(coef, c.q, c.plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8,
+                   static_cast<int>(stride));
+    }
+
+    // a sequential block, Huffman-coded (jdhuff.c decode_mcu), then its IDCT
+    void huff_block(Component& c, int bx, int by, int ci) {
         int16_t coef[64];
         std::memset(coef, 0, sizeof(coef));
         int s = decode(dc[c.dc_table]);
@@ -402,16 +611,222 @@ struct Decoder {
                 k += 15;
             }
         }
-        const size_t stride = static_cast<size_t>(c.blocks_w) * 8;
-        idct_islow(coef, qt[c.tq], c.plane.data() + static_cast<size_t>(by) * 8 * stride + bx * 8,
-                   static_cast<int>(stride));
+        idct_block(c, coef, bx, by);
+    }
+
+    // a sequential block, arithmetic-coded (jdarith.c decode_mcu)
+    void arith_block(Component& c, int bx, int by, int ci) {
+        int16_t coef[64];
+        std::memset(coef, 0, sizeof(coef));
+        last_dc[ci] = (last_dc[ci] + arith_dc_diff(c.dc_table, ci)) & 0xFFFF;
+        coef[0] = static_cast<int16_t>(last_dc[ci]);
+        const int tbl = c.ac_table;
+        int k = 0;
+        do {
+            uint8_t* st = ac_stats[tbl] + 3 * k;
+            if (arith_decode(st)) break;  // EOB
+            for (;;) {
+                k++;
+                if (arith_decode(st + 1)) break;
+                st += 3;
+                if (k >= 63) malformed("an arithmetic-coded block runs past 63 coefficients");
+            }
+            coef[kNaturalOrder[k]] = static_cast<int16_t>(arith_ac_value(tbl, k, st));
+        } while (k < 63);
+        idct_block(c, coef, bx, by);
+    }
+
+    // progressive Huffman, jdphuff.c: the four kinds of scan
+    void huff_dc_first(Component& c, int bx, int by, int ci) {
+        int s = decode(dc[c.dc_table]);
+        if (s > 16) malformed("a DC difference of more than 16 bits");
+        int diff = s ? extend(get_bits(s), s) : 0;
+        last_dc[ci] += diff;
+        coef_at(c, bx, by)[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[ci]) << al);
+    }
+
+    void huff_dc_refine(Component& c, int bx, int by) {
+        if (get_bits(1)) coef_at(c, bx, by)[0] |= static_cast<int16_t>(1 << al);
+    }
+
+    void huff_ac_first(Component& c, int bx, int by) {
+        if (eobrun > 0) {
+            --eobrun;
+            return;
+        }
+        int16_t* coef = coef_at(c, bx, by);
+        const Huffman& t = ac[c.ac_table];
+        for (int k = ss; k <= se; ++k) {
+            int rs = decode(t);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                coef[kNaturalOrder[k]] =
+                    static_cast<int16_t>(static_cast<unsigned>(extend(get_bits(s), s)) << al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                eobrun = 1 << r;
+                if (r) eobrun += get_bits(r);
+                --eobrun;
+                break;
+            }
+        }
+    }
+
+    void huff_ac_refine(Component& c, int bx, int by) {
+        int16_t* coef = coef_at(c, bx, by);
+        const int p1 = 1 << al, m1 = -1 * (1 << al);
+        const Huffman& t = ac[c.ac_table];
+        int k = ss;
+        if (eobrun == 0) {
+            for (; k <= se; ++k) {
+                int rs = decode(t);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                    s = get_bits(1) ? p1 : m1;  // a size other than 1 is corrupt: libjpeg warns
+                } else if (r != 15) {
+                    eobrun = 1 << r;
+                    if (r) eobrun += get_bits(r);
+                    break;
+                }
+                do {
+                    int16_t* tc = coef + kNaturalOrder[k];
+                    if (*tc != 0) {
+                        if (get_bits(1) && (*tc & p1) == 0)
+                            *tc = static_cast<int16_t>(*tc >= 0 ? *tc + p1 : *tc + m1);
+                    } else {
+                        if (--r < 0) break;
+                    }
+                    ++k;
+                } while (k <= se);
+                if (s) coef[kNaturalOrder[k]] = static_cast<int16_t>(s);
+            }
+        }
+        if (eobrun > 0) {
+            for (; k <= se; ++k) {
+                int16_t* tc = coef + kNaturalOrder[k];
+                if (*tc != 0 && get_bits(1) && (*tc & p1) == 0)
+                    *tc = static_cast<int16_t>(*tc >= 0 ? *tc + p1 : *tc + m1);
+            }
+            --eobrun;
+        }
+    }
+
+    // progressive arithmetic, jdarith.c: the four kinds of scan
+    void arith_dc_first(Component& c, int bx, int by, int ci) {
+        last_dc[ci] += arith_dc_diff(c.dc_table, ci);
+        coef_at(c, bx, by)[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[ci]) << al);
+    }
+
+    void arith_dc_refine(Component& c, int bx, int by) {
+        if (arith_decode(fixed_bin)) coef_at(c, bx, by)[0] |= static_cast<int16_t>(1 << al);
+    }
+
+    void arith_ac_first(Component& c, int bx, int by) {
+        int16_t* coef = coef_at(c, bx, by);
+        const int tbl = c.ac_table;
+        for (int k = ss; k <= se; ++k) {
+            uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+            if (arith_decode(st)) break;  // EOB
+            while (arith_decode(st + 1) == 0) {
+                st += 3;
+                if (++k > se) malformed("an arithmetic-coded band runs past its end");
+            }
+            int v = arith_ac_value(tbl, k, st);
+            coef[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << al);
+        }
+    }
+
+    void arith_ac_refine(Component& c, int bx, int by) {
+        int16_t* coef = coef_at(c, bx, by);
+        const int tbl = c.ac_table;
+        const int p1 = 1 << al, m1 = -1 * (1 << al);
+        int kex = se;
+        for (; kex > 0; --kex)
+            if (coef[kNaturalOrder[kex]]) break;
+        for (int k = ss; k <= se; ++k) {
+            uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+            if (k > kex && arith_decode(st)) break;  // EOB
+            for (;;) {
+                int16_t* tc = coef + kNaturalOrder[k];
+                if (*tc) {
+                    if (arith_decode(st + 2))
+                        *tc = static_cast<int16_t>(*tc < 0 ? *tc + m1 : *tc + p1);
+                    break;
+                }
+                if (arith_decode(st + 1)) {
+                    *tc = static_cast<int16_t>(arith_decode(fixed_bin) ? m1 : p1);
+                    break;
+                }
+                st += 3;
+                if (++k > se) malformed("an arithmetic-coded band runs past its end");
+            }
+        }
+    }
+
+    void decode_unit(Component& c, int bx, int by, int ci) {
+        if (!progressive) {
+            if (arithmetic) arith_block(c, bx, by, ci);
+            else huff_block(c, bx, by, ci);
+        } else if (ss == 0) {
+            if (ah == 0) {
+                if (arithmetic) arith_dc_first(c, bx, by, ci);
+                else huff_dc_first(c, bx, by, ci);
+            } else if (arithmetic) {
+                arith_dc_refine(c, bx, by);
+            } else {
+                huff_dc_refine(c, bx, by);
+            }
+        } else if (ah == 0) {
+            if (arithmetic) arith_ac_first(c, bx, by);
+            else huff_ac_first(c, bx, by);
+        } else if (arithmetic) {
+            arith_ac_refine(c, bx, by);
+        } else {
+            huff_ac_refine(c, bx, by);
+        }
+    }
+
+    // the statistics (and DC predictions) a scan starts with and resets at
+    // each restart marker (jdarith.c start_pass / process_restart)
+    void reset_scan_state() {
+        for (int i = 0; i < 4; ++i) {
+            last_dc[i] = 0;
+            dc_context[i] = 0;
+        }
+        eobrun = 0;
+        if (arithmetic) {
+            for (int i = 0; i < scan_ns; ++i) {
+                const Component& c = comp[scan_idx[i]];
+                if (!progressive || (ss == 0 && ah == 0)) std::memset(dc_stats[c.dc_table], 0, 64);
+                if (!progressive || ss) std::memset(ac_stats[c.ac_table], 0, 256);
+            }
+            arith_reset();
+        }
+        bitbuf = 0;
+        bitcount = 0;
+        hit_marker = false;
+    }
+
+    void restart() {
+        if (arithmetic && unread_marker) {
+            int m = unread_marker;
+            unread_marker = 0;
+            if (m < 0xD0 || m > 0xD7) malformed("expected an RST marker");
+        } else {
+            while (pos + 1 < size && !(data[pos] == 0xFF && data[pos + 1] != 0x00)) ++pos;
+            int m = next_marker();
+            if (m < 0xD0 || m > 0xD7) malformed("expected an RST marker");
+        }
+        reset_scan_state();
     }
 
     void read_scan() {
         if (!frame) malformed("a scan before its frame header");
         int ns = byte();
         if (ns < 1 || ns > ncomp) malformed("bad scan component count");
-        int idx[4];
+        scan_ns = ns;
         for (int i = 0; i < ns; ++i) {
             int id = byte();
             int tables = byte();
@@ -419,26 +834,51 @@ struct Decoder {
             for (int j = 0; j < ncomp; ++j)
                 if (comp[j].id == id) found = j;
             if (found < 0) malformed("a scan names an unknown component");
-            idx[i] = found;
+            scan_idx[i] = found;
             Component& c = comp[found];
             c.dc_table = tables >> 4;
             c.ac_table = tables & 15;
-            if (c.dc_table > 3 || c.ac_table > 3 || !dc[c.dc_table].defined ||
-                !ac[c.ac_table].defined)
-                malformed("a scan uses an undefined Huffman table");
-            if (!qt_defined[c.tq]) malformed("a component uses an undefined DQT table");
-            c.seen = true;
         }
-        int ss = byte(), se = byte(), ahal = byte();
-        if (ss != 0 || se != 63 || ahal != 0) malformed("bad spectral selection for a sequential scan");
-        for (int i = 0; i < 4; ++i) last_dc[i] = 0;
-        bitbuf = 0;
-        bitcount = 0;
-        hit_marker = false;
+        ss = byte();
+        se = byte();
+        int ahal = byte();
+        ah = ahal >> 4;
+        al = ahal & 15;
+        if (progressive) {
+            // jdphuff.c / jdarith.c start_pass: a legal progression step
+            bool bad = false;
+            if (ss == 0) bad = se != 0;
+            else bad = ss > se || se > 63 || ns != 1;
+            if (ah != 0 && al != ah - 1) bad = true;
+            if (al > 13) bad = true;
+            if (bad) malformed("bad progression parameters in a scan");
+        } else if (ss != 0 || se != 63 || ahal != 0) {
+            malformed("bad spectral selection for a sequential scan");
+        }
+        for (int i = 0; i < ns; ++i) {
+            Component& c = comp[scan_idx[i]];
+            const bool dc_needed = !progressive || (ss == 0 && ah == 0);
+            const bool ac_needed = !progressive || ss != 0;
+            if (arithmetic) {
+                if (c.dc_table > 15 || c.ac_table > 15) malformed("an arithmetic table past 15");
+            } else if ((dc_needed && (c.dc_table > 3 || !dc[c.dc_table].defined)) ||
+                       (ac_needed && (c.ac_table > 3 || !ac[c.ac_table].defined))) {
+                malformed("a scan uses an undefined Huffman table");
+            }
+            if (!c.seen) {  // jdinput.c latch_quant_tables
+                if (!qt_defined[c.tq]) malformed("a component uses an undefined DQT table");
+                std::memcpy(c.q, qt[c.tq], sizeof(c.q));
+            }
+            c.seen = true;
+            if (progressive)
+                for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+        }
+        unread_marker = 0;
+        reset_scan_state();
 
         long units, units_x;
         if (ns == 1) {  // non-interleaved: one block an MCU, over the real samples only
-            Component& c = comp[idx[0]];
+            Component& c = comp[scan_idx[0]];
             units_x = (c.width + 7) / 8;
             units = units_x * ((c.height + 7) / 8);
         } else {
@@ -450,22 +890,26 @@ struct Decoder {
             if (restart_interval) {
                 if (togo == 0) {
                     restart();
-                    for (int i = 0; i < 4; ++i) last_dc[i] = 0;
                     togo = restart_interval;
                 }
                 --togo;
             }
             int ux = static_cast<int>(u % units_x), uy = static_cast<int>(u / units_x);
             if (ns == 1) {
-                decode_block(comp[idx[0]], ux, uy, idx[0]);
+                decode_unit(comp[scan_idx[0]], ux, uy, 0);
             } else {
                 for (int i = 0; i < ns; ++i) {
-                    Component& c = comp[idx[i]];
+                    Component& c = comp[scan_idx[i]];
                     for (int v = 0; v < c.v; ++v)
                         for (int h = 0; h < c.h; ++h)
-                            decode_block(c, ux * c.h + h, uy * c.v + v, idx[i]);
+                            decode_unit(c, ux * c.h + h, uy * c.v + v, i);
                 }
             }
+        }
+        if (arithmetic && unread_marker) {
+            pos = marker_pos;  // the marker the decoder met is the next one
+            unread_marker = 0;
+            return;
         }
         // drop the rest of the entropy-coded segment up to the next marker
         while (pos + 1 < size && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
@@ -492,21 +936,18 @@ struct Decoder {
             } else if (m == 0xDD) {
                 restart_interval = u16();
             } else if (m == 0xCC) {
-                unsupported("arithmetic coding (DAC)");
+                read_dac(end);
             } else if (m >= 0xC0 && m <= 0xCF) {
-                if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE)
-                    unsupported("a progressive JPEG");
                 read_sof(m);
-                if (headers_only) {
-                    check_colour_space();
-                    return;
-                }
+                check_colour_space();
+                if (headers_only) return;
+                allocate();
             } else if (m == 0xDA) {
                 read_scan();
                 scanned = true;
                 continue;  // read_scan leaves pos at the next marker
-            } else if (m == 0xE0 && len >= 7 && std::memcmp(data + pos, "JFIF\0", 5) == 0) {
-                saw_jfif = true;
+            } else if (m == 0xE0 && len >= 16 && std::memcmp(data + pos, "JFIF\0", 5) == 0) {
+                saw_jfif = true;  // jdmarker.c examine_app0: 14 bytes of data at least
             } else if (m == 0xEE && len >= 14 && std::memcmp(data + pos, "Adobe", 5) == 0) {
                 saw_adobe = true;
                 adobe_transform = data[pos + 11];
@@ -518,16 +959,52 @@ struct Decoder {
         for (int i = 0; i < ncomp; ++i)
             if (!comp[i].seen) malformed("a component that no scan codes");
         check_colour_space();
+        if (progressive) {
+            check_no_smoothing();
+            for (int i = 0; i < ncomp; ++i) {
+                Component& c = comp[i];
+                for (int by = 0; by < c.blocks_h; ++by)
+                    for (int bx = 0; bx < c.blocks_w; ++bx) idct_block(c, coef_at(c, bx, by), bx, by);
+            }
+        }
     }
 
+    // jdcoefct.c smoothing_ok: libjpeg-turbo smooths the blocks of a
+    // progressive file (decompress_smooth_data) when a component's DC is
+    // known, its first ten quantizers are nonzero, and one of its AC
+    // coefficients 1-9 is not refined to bit 0; the port does not
+    void check_no_smoothing() const {
+        static const int kFirstTen[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+        bool useful = false;
+        for (int i = 0; i < ncomp; ++i) {
+            const Component& c = comp[i];
+            for (int k : kFirstTen)
+                if (c.q[k] == 0) return;
+            if (c.coef_bits[0] < 0) return;
+            for (int k = 1; k < 10; ++k)
+                if (c.coef_bits[k] != 0) useful = true;
+        }
+        if (useful)
+            unsupported("a progressive JPEG whose scans leave a low AC coefficient unrefined "
+                        "(libjpeg-turbo smooths its blocks)");
+    }
+
+    // jdapimin.c default_decompress_parms: the file's colour space
+    bool rgb_coded() const {
+        if (saw_jfif) return false;
+        if (saw_adobe) return adobe_transform == 0;
+        return comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+    }
+
+    bool ycck() const { return saw_adobe && adobe_transform != 0; }
+
     void check_colour_space() const {
-        if (ncomp == 3) {
-            // jdapimin.c default_decompress_parms: which colour space the file is in
-            bool rgb;
-            if (saw_jfif) rgb = false;
-            else if (saw_adobe) rgb = adobe_transform == 0;
-            else rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-            if (rgb) unsupported("an RGB-coded 3-component JPEG");
+        for (int i = 0; i < ncomp; ++i) {
+            const Component& c = comp[i];
+            const bool full = c.h == hmax && c.v == vmax;
+            const bool half = 2 * c.h == hmax && (c.v == vmax || 2 * c.v == vmax);
+            if (!full && !half)
+                unsupported("a sampling layout other than 4:4:4, 4:2:2 or 4:2:0");
         }
     }
 
@@ -542,9 +1019,7 @@ struct Decoder {
                 std::memcpy(&out[static_cast<size_t>(y) * width], p + y * stride, width);
             return out;
         }
-        const bool h2 = 2 * c.h == hmax;
         const bool v1 = c.v == vmax, v2 = 2 * c.v == vmax;
-        if (!h2 || !(v1 || v2)) unsupported("a sampling layout other than 4:4:4, 4:2:2 or 4:2:0");
         const int dw = c.width, dh = c.height;
         std::vector<int> row(2 * dw);
         std::vector<int> colsum(dw);
@@ -587,8 +1062,27 @@ struct Decoder {
             std::memcpy(out, g.data(), g.size());
             return;
         }
-        std::vector<uint8_t> yy = full_size(comp[0]), cb = full_size(comp[1]),
-                             cr = full_size(comp[2]);
+        std::vector<uint8_t> p0 = full_size(comp[0]), p1 = full_size(comp[1]),
+                             p2 = full_size(comp[2]);
+        std::vector<uint8_t> p3 = ncomp == 4 ? full_size(comp[3]) : std::vector<uint8_t>();
+        const size_t n = static_cast<size_t>(width) * height;
+        if (ncomp == 3 && rgb_coded()) {  // no colour transform
+            for (size_t i = 0; i < n; ++i) {
+                out[3 * i] = p0[i];
+                out[3 * i + 1] = p1[i];
+                out[3 * i + 2] = p2[i];
+            }
+            return;
+        }
+        if (ncomp == 4 && !ycck()) {  // CMYK, inverted as PIL's "CMYK;I"
+            for (size_t i = 0; i < n; ++i) {
+                out[4 * i] = static_cast<uint8_t>(255 - p0[i]);
+                out[4 * i + 1] = static_cast<uint8_t>(255 - p1[i]);
+                out[4 * i + 2] = static_cast<uint8_t>(255 - p2[i]);
+                out[4 * i + 3] = static_cast<uint8_t>(255 - p3[i]);
+            }
+            return;
+        }
         // jdcolor.c build_ycc_rgb_table
         constexpr int SCALEBITS = 16;
         constexpr int64_t ONE_HALF = int64_t(1) << (SCALEBITS - 1);
@@ -602,12 +1096,21 @@ struct Decoder {
             cb_g[i] = -fix(0.34414) * x + ONE_HALF;
         }
         auto clamp = [](int v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); };
-        const size_t n = static_cast<size_t>(width) * height;
         for (size_t i = 0; i < n; ++i) {
-            int y = yy[i], b = cb[i], r = cr[i];
-            out[3 * i] = clamp(y + cr_r[r]);
-            out[3 * i + 1] = clamp(y + static_cast<int>((cb_g[b] + cr_g[r]) >> SCALEBITS));
-            out[3 * i + 2] = clamp(y + cb_b[b]);
+            int y = p0[i], b = p1[i], r = p2[i];
+            int R = y + cr_r[r];
+            int G = y + static_cast<int>((cb_g[b] + cr_g[r]) >> SCALEBITS);
+            int B = y + cb_b[b];
+            if (ncomp == 3) {
+                out[3 * i] = clamp(R);
+                out[3 * i + 1] = clamp(G);
+                out[3 * i + 2] = clamp(B);
+            } else {  // YCCK -> CMYK (jdcolor.c ycck_cmyk_convert), then PIL's inversion
+                out[4 * i] = static_cast<uint8_t>(255 - clamp(255 - R));
+                out[4 * i + 1] = static_cast<uint8_t>(255 - clamp(255 - G));
+                out[4 * i + 2] = static_cast<uint8_t>(255 - clamp(255 - B));
+                out[4 * i + 3] = static_cast<uint8_t>(255 - p3[i]);
+            }
         }
     }
 };
@@ -621,12 +1124,12 @@ void set_error(char* err, size_t cap, const std::string& what) {
 extern "C" {
 
 // Decode the JPEG in data[0:size]. dims[0..2] receive height, width and
-// channels (1 grey, 3 RGB). With out == NULL only the headers up to the
-// frame header are read and the call returns 3 (sizes known, nothing
-// written); otherwise out must hold height*width*channels bytes, and the
-// call returns 0 when the pixels are written (row-major, channels last).
-// A file it does not read returns 1, a malformed file 2 (or an out_cap
-// too small); err receives a message.
+// channels (1 grey, 3 RGB, 4 CMYK as PIL's "CMYK" mode holds it). With
+// out == NULL only the headers up to the frame header are read and the
+// call returns 3 (sizes known, nothing written); otherwise out must hold
+// height*width*channels bytes, and the call returns 0 when the pixels are
+// written (row-major, channels last). A file it does not read returns 1,
+// a malformed file 2 (or an out_cap too small); err receives a message.
 int ddgan_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_cap,
                       int64_t* dims, char* err, size_t err_cap) {
     try {
@@ -647,6 +1150,14 @@ int ddgan_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out
         set_error(err, err_cap, e.what());
         return kMalformed;
     }
+}
+
+// Copy the decoder's T.81 Table D.2 (jpeg_aritab's 114 entries) into out;
+// returns the number of entries.
+size_t ddgan_jpeg_aritab(int64_t* out, size_t n) {
+    size_t k = n < 114 ? n : 114;
+    for (size_t i = 0; i < k; ++i) out[i] = kAritab[i];
+    return 114;
 }
 
 }  // extern "C"

@@ -4,8 +4,8 @@ datasets_prep/heavy_custom.py, datasets_prep/datareader.py).
 The port's own copy of `ddgan_tpu/data/datasets.py`, without PIL. Items are
 the uint8 arrays that the JAX package wraps in PIL images, so `ToTensor`
 gives what it gives there: image files are decoded by `utils.decode_images`
-(PNG, and baseline JPEG through `data/jpeg.py`) as PIL's `convert("RGB")`
-gives them, and `Luna16Dataset2`'s resize is PIL's bicubic
+(PNG, JPEG, WebP, BMP, PBM/PGM/PPM and TIFF, told by their first bytes)
+as PIL's `convert("RGB")` gives them, and `Luna16Dataset2`'s resize is PIL's bicubic
 (`data/resize.py`). LUNA16 volumes are read through the process-wide LRU of
 decoded volumes (`data/slicecache.py`), as the JAX package reads them
 through its native slice cache.

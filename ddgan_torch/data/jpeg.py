@@ -1,15 +1,20 @@
-"""Baseline JPEG decoding with libjpeg-turbo's arithmetic, without PIL.
+"""JPEG decoding with libjpeg-turbo's arithmetic, without PIL.
 
 `decode_jpeg(data)` gives the pixels that PIL's `Image.open(f)` gives for
 the files it reads: an (H, W) uint8 array for a grey JPEG ("L"), an
-(H, W, 3) one for a YCbCr JPEG ("RGB"). It reads SOF0 / SOF1 8-bit
-Huffman-coded files with 8- or 16-bit DQT tables, restart markers, 1 or 3
-components and 4:4:4, 4:2:2 or 4:2:0 sampling, at any size, and computes
-libjpeg-turbo's ISLOW IDCT, its fancy upsampling and its YCbCr -> RGB
-tables, so its pixels equal PIL's bit for bit. A progressive,
-arithmetic-coded, 12-bit, CMYK or otherwise laid-out file raises
-NotImplementedError naming ROADMAP.md Queue 1 item 13; a malformed file
-raises ValueError.
+(H, W, 3) one for a YCbCr or RGB-coded JPEG ("RGB"), an (H, W, 4) one for
+a CMYK or YCCK JPEG ("CMYK", inverted as PIL's "CMYK;I" raw mode gives it;
+`utils.to_rgb` converts it as `convert("RGB")` does). It reads 8-bit
+files coded sequentially or progressively, with Huffman or arithmetic
+coding (SOF0, SOF1, SOF2, SOF9, SOF10), any scan script, 8- or 16-bit DQT
+tables, DAC conditioning, restart markers, 1, 3 or 4 components and
+4:4:4, 4:2:2 or 4:2:0 sampling, at any size, and computes libjpeg-turbo's
+entropy decoders, its ISLOW IDCT, its fancy upsampling and its colour
+conversions, so its pixels equal PIL's bit for bit. Lossless,
+hierarchical and 12-bit files, other layouts, and a progressive file
+whose scans leave a low coefficient unrefined (libjpeg-turbo smooths its
+blocks) raise NotImplementedError naming ROADMAP.md Queue 1 item 13i; a
+malformed file raises ValueError.
 
 The decoder is C++ (`ddgan_torch/csrc/jpeg_decode.cpp`, a plain C
 interface): entropy decoding is bit-serial, a q95 256² 4:2:0 image holds
@@ -45,6 +50,8 @@ def _library() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_int64), ctypes.c_char_p, ctypes.c_size_t,
             ]
             lib.ddgan_jpeg_decode.restype = ctypes.c_int
+            lib.ddgan_jpeg_aritab.argtypes = [ctypes.POINTER(ctypes.c_int64), ctypes.c_size_t]
+            lib.ddgan_jpeg_aritab.restype = ctypes.c_size_t
             _lib = lib
         return _lib
 
@@ -58,19 +65,27 @@ def _call(data: bytes, out: np.ndarray | None) -> tuple[int, int, int]:
     msg = err.value.decode(errors="replace")
     if rc == 1:
         raise NotImplementedError(
-            f"{msg}: ddgan_torch decodes baseline JPEGs only (8-bit, Huffman-coded, grey or "
-            "YCbCr at 4:4:4, 4:2:2 or 4:2:0); other images need an image decoder "
-            "(ROADMAP.md Queue 1 item 13).")
+            f"{msg}: ddgan_torch decodes 8-bit sequential and progressive JPEGs, Huffman- or "
+            "arithmetic-coded, grey, YCbCr, RGB, CMYK or YCCK at 4:4:4, 4:2:2 or 4:2:0; this "
+            "one needs an image decoder (ROADMAP.md Queue 1 item 13i).")
     if rc == 2:
         raise ValueError(f"malformed JPEG: {msg}")
     return int(dims[0]), int(dims[1]), int(dims[2])
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """(H, W) grey or (H, W, 3) RGB uint8 pixels of a baseline JPEG, as
-    PIL's `Image.open` decodes them."""
+    """(H, W) grey, (H, W, 3) RGB or (H, W, 4) CMYK uint8 pixels of a JPEG,
+    as PIL's `Image.open` decodes them."""
     data = bytes(data)
     h, w, c = _call(data, None)
     out = np.empty((h, w, c), np.uint8)
     _call(data, out)
     return out[:, :, 0] if c == 1 else out
+
+
+def aritab() -> list[int]:
+    """The decoder's copy of T.81 Table D.2 in jaricom.c's packing (114
+    entries), as the tests hold it against libjpeg's `jpeg_aritab`."""
+    out = (ctypes.c_int64 * 114)()
+    _library().ddgan_jpeg_aritab(out, 114)
+    return list(out)

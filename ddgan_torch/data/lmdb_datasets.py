@@ -5,9 +5,10 @@ datasets_prep/lmdb_datasets.py, the CelebA-HQ 27000/3000 split, and
 datasets_prep/lsun.py, torchvision's LSUN with a cached key list). It reads
 the LMDB files with `data/lmdb.py` instead of the `lmdb` package, and
 decodes encoded values with `utils.decode_images` instead of PIL: PNG,
-baseline JPEG and WebP (the LSUN release's values, as its `data.py export`
-writes them), grey replicated to RGB as `.convert("RGB")` does. Other
-formats raise NotImplementedError naming ROADMAP.md Queue 1 item 13. Items
+JPEG, WebP (the LSUN release's values, as its `data.py export` writes
+them), BMP, PBM/PGM/PPM and TIFF, converted to RGB as `.convert("RGB")`
+does. What they do not read raises NotImplementedError naming ROADMAP.md
+Queue 1 item 13i. Items
 are the uint8 (H, W, 3) arrays that the JAX package wraps in PIL images,
 through the same transform.
 """

@@ -6,8 +6,8 @@ its eps-regularised `scipy.linalg.sqrtm` retry and its imaginary-component
 check) is the reference's, line for line. Features come from a pluggable
 `feature_fn(batch_nhwc_float01) -> (B, dims)`, by default the port's
 FID-InceptionV3 (`ddgan_torch.eval.inception`) on the GPU. Images are read
-with the port's decoders (`utils.decode_images`: PNG, baseline JPEG and
-WebP) and resized with its copy of PIL's bilinear (`data/resize.py`);
+with the port's decoders (`utils.decode_images`: PNG, JPEG, WebP, BMP,
+PBM/PGM/PPM and TIFF, the format told by the file's first bytes) and resized with its copy of PIL's bilinear (`data/resize.py`);
 precomputed .npz / .npy statistics stand in for an image directory.
 """
 
@@ -35,8 +35,9 @@ def list_image_files(path: str | pathlib.Path) -> list[pathlib.Path]:
 
 def _load_images_01(paths: Sequence, resize: int = 0) -> list[np.ndarray]:
     """(H, W, 3) float32 in [0, 1] of each image file, decoded together
-    (`decode_images`: PNG, baseline JPEG and WebP; other formats raise
-    NotImplementedError naming ROADMAP.md Queue 1 item 13), each resized to resize² with PIL's
+    (`decode_images`: PNG, JPEG, WebP, BMP, PBM/PGM/PPM and TIFF; what they
+    do not read raises NotImplementedError naming ROADMAP.md Queue 1 item
+    13i), each resized to resize² with PIL's
     bilinear first when resize > 0 (`ddgan_tpu/eval/fid.py:31-37`)."""
     datas = []
     for path in paths:

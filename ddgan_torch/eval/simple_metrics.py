@@ -9,7 +9,7 @@ ones via DDGAN_TPU_INCEPTION_RANDOM).
 Folder protocol matches the reference: images under class subfolders
 (ImageFolder layout) or flat; inputs are resized and normalized by the
 feature function itself. Images are read with the port's decoders (PNG,
-baseline JPEG and WebP, `utils.decode_images`).
+JPEG, WebP, BMP, PBM/PGM/PPM and TIFF, `utils.decode_images`).
 """
 
 from __future__ import annotations

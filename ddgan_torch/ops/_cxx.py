@@ -1,7 +1,7 @@
 """Build a host C++ source of `ddgan_torch/csrc/` into a shared library and load it.
 
-The host sources (the JPEG decoder) have a plain C interface, as the CUDA
-kernels do. Each is compiled with the host C++ compiler (`$CXX`, else
+The host sources (the JPEG, WebP and TIFF decoders) have a plain C
+interface, as the CUDA kernels do. Each is compiled with the host C++ compiler (`$CXX`, else
 `c++`) at first use into `ddgan_torch/_build/` (git-ignored), named by a
 hash of the source and the flags (`_nvcc.compile_and_load`), and loaded
 with ctypes. A build failure raises; nothing falls back.
@@ -21,7 +21,7 @@ CXX_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC"]
 def find_cxx() -> str:
     found = shutil.which(os.environ.get("CXX") or "c++")
     if found is None:
-        raise RuntimeError("no host C++ compiler ($CXX or c++) to build the JPEG decoder")
+        raise RuntimeError("no host C++ compiler ($CXX or c++) to build the image decoders")
     return found
 
 

@@ -4,9 +4,11 @@ the file and shell helpers of the reference's additionals/utilities.py.
 `save_image`, `to_range_0_1`, `copy_file`, `copy_directory`, `move_file`,
 `run_bash_command`, `find_python_command` and `install_package` follow
 `ddgan_tpu/utils.py`; PNGs are encoded and decoded with the standard
-library (zlib), baseline JPEGs and WebP files decoded by the port's own
-decoders (`data/jpeg.py`, `data/webp.py`), so the port needs no imaging
-package.
+library (zlib) at every bit depth and with Adam7, JPEG, WebP, BMP,
+PBM/PGM/PPM and TIFF files decoded by the port's own decoders
+(`data/jpeg.py`, `data/webp.py`, `data/bmp.py`, `data/netpbm.py`,
+`data/tiff.py`) and converted to RGB as PIL's `convert("RGB")` does
+(`to_rgb`), so the port needs no imaging package.
 """
 
 from __future__ import annotations
@@ -55,12 +57,17 @@ def encode_png(arr: np.ndarray) -> bytes:
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+# Adam7's seven passes: (first row, first column, row step, column step)
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
+          (1, 0, 2, 1))
 
 
 def _not_decodable(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: ddgan_torch reads 8-bit non-interlaced PNGs, baseline JPEGs and WebP "
-        "files only; other images need an image decoder (ROADMAP.md Queue 1 item 13)."
+        f"{what}: ddgan_torch reads PNG, JPEG (baseline, progressive, arithmetic-coded), "
+        "WebP, BMP, PBM/PGM/PPM and TIFF files in the layouts PIL reads, except those "
+        "ROADMAP.md Queue 1 item 13i lists; this one needs an image decoder (item 13i)."
     )
 
 
@@ -107,23 +114,28 @@ def _unfilter(filters: np.ndarray, data: np.ndarray) -> np.ndarray:
 
 
 def _read_png(data: bytes):
-    """(header, palette, rows) of a PNG; rows are the inflated scanlines,
-    (H, 1 + W * bpp) uint8, each row's filter byte first."""
+    """(header, palette, raw) of a PNG: header the IHDR fields (width,
+    height, depth, colour type, compression, filter, interlace), raw the
+    inflated scanlines, uint8, each row's filter byte first."""
     data = bytes(data)
     if data[:8] != _PNG_SIGNATURE:
         raise _not_decodable("not a PNG file")
     pos, header, palette, idat = 8, None, None, []
     while pos + 12 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if pos + 12 + length > len(data):
+            raise ValueError("PNG chunk runs past the end of the file")
         tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:pos + 12 + length])
-        if len(body) != length or zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
             raise ValueError(f"PNG chunk {tag!r} is truncated or fails its CRC")
         pos += 12 + length
         if tag == b"IHDR":
+            if length != 13:
+                raise ValueError("PNG IHDR chunk is not 13 bytes")
             header = struct.unpack(">IIBBBBB", body)
         elif tag == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
             idat.append(body)
         elif tag == b"IEND":
@@ -131,24 +143,96 @@ def _read_png(data: bytes):
     if header is None or not idat:
         raise ValueError("PNG without IHDR or IDAT")
     w, h, depth, color, _, _, interlace = header
-    if depth != 8 or interlace != 0 or color not in _PNG_CHANNELS:
-        raise _not_decodable(f"PNG with bit depth {depth}, colour type {color}, "
-                             f"interlace {interlace}")
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    stride = w * _PNG_CHANNELS[color]
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"PNG data holds {raw.size} bytes, {h * (stride + 1)} expected")
-    return header, palette, raw.reshape(h, stride + 1)
+    if color not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[color] or interlace > 1:
+        raise ValueError(f"PNG with bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace}: not a valid layout")
+    if w == 0 or h == 0:
+        raise ValueError(f"PNG of {w}x{h} pixels")
+    try:
+        raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from None
+    need = sum(ph * (1 + _row_bytes(pw, depth, color)) for ph, pw in _passes(w, h, interlace))
+    if raw.size < need:
+        raise ValueError(f"PNG data holds {raw.size} bytes, {need} expected")
+    return header, palette, raw[:need]
 
 
-def _to_rgb(pixels: np.ndarray, color: int, palette) -> np.ndarray:
+def _row_bytes(w: int, depth: int, color: int) -> int:
+    return (w * depth * _PNG_CHANNELS[color] + 7) // 8
+
+
+def _passes(w: int, h: int, interlace: int) -> list:
+    """(height, width) of each sub-image: the image itself, or Adam7's seven
+    passes (an empty pass has no bytes, not even filter bytes)."""
+    if not interlace:
+        return [(h, w)]
+    out = []
+    for y0, x0, dy, dx in _ADAM7:
+        ph, pw = max(0, (h - y0 + dy - 1) // dy), max(0, (w - x0 + dx - 1) // dx)
+        out.append((ph, pw) if ph and pw else (0, 0))
+    return out
+
+
+def unpack_bits(rows: np.ndarray, n: int, bits: int) -> np.ndarray:
+    """(H, n) uint8 values of the first n `bits`-bit samples of each of the
+    (H, row bytes) uint8 rows, packed MSB first as PNG, BMP, PBM and TIFF
+    pack 1-, 2- and 4-bit samples."""
+    h = rows.shape[0]
+    b = np.unpackbits(rows, axis=1)[:, :n * bits].reshape(h, n, bits)
+    weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+    return (b * weights).sum(axis=2, dtype=np.uint8)
+
+
+def _samples(rows: np.ndarray, w: int, depth: int, channels: int) -> np.ndarray:
+    """(H, W, channels) samples of unfiltered rows (H, row bytes): uint8
+    below 16 bits (1, 2 and 4 bits unpacked, MSB first), uint16 at 16."""
+    h = rows.shape[0]
+    if depth == 8:
+        return rows[:, :w * channels].reshape(h, w, channels)
+    if depth == 16:
+        return rows.view(">u2")[:, :w * channels].astype(np.uint16).reshape(h, w, channels)
+    return unpack_bits(rows, w, depth)[:, :, None]
+
+
+def _png_samples(header, raw: np.ndarray) -> np.ndarray:
+    """(H, W, channels) samples of one PNG of any depth, Adam7 or not."""
+    w, h, depth, color, _, _, interlace = header
+    channels = _PNG_CHANNELS[color]
+    bpp = max(1, depth * channels // 8)  # the filters' byte distance
+    out = np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (ph, pw), (y0, x0, dy, dx) in zip(_passes(w, h, interlace),
+                                          _ADAM7 if interlace else ((0, 0, 1, 1),)):
+        if ph == 0 or pw == 0:
+            continue
+        stride = _row_bytes(pw, depth, color)
+        rows = raw[pos:pos + ph * (stride + 1)].reshape(ph, stride + 1)
+        pos += ph * (stride + 1)
+        data = rows[:, 1:].reshape(1, ph, stride // bpp, bpp)
+        done = _unfilter(rows[None, :, 0], data) if rows[:, 0].any() else data
+        out[y0::dy, x0::dx] = _samples(done.reshape(ph, stride), pw, depth, channels)
+    return out
+
+
+def _png_mode(samples: np.ndarray, color: int, palette, depth: int) -> tuple[np.ndarray, str]:
+    """A PNG's samples in the mode PIL opens it in, for `to_rgb`: a palette
+    looked up ("RGB"), 16-bit grey as "I" (PIL's "I;16", clipped there),
+    other 16-bit samples by their high bytes, 1-, 2- and 4-bit grey scaled
+    by 255, 85 and 17 (PIL's "1", "L;2" and "L;4"), grey+alpha as "L"."""
     if color == 3:
-        if palette is None or int(pixels.max(initial=0)) >= len(palette):
+        if palette is None or int(samples.max(initial=0)) >= len(palette):
             raise ValueError("PNG palette index outside its PLTE chunk")
-        return palette[pixels[:, :, 0]]
+        return palette[samples[:, :, 0]], "RGB"
+    if depth == 16:
+        if color == 0:
+            return samples[:, :, 0], "I"
+        samples = (samples >> 8).astype(np.uint8)
+    elif depth < 8:
+        samples = samples * np.uint8({1: 255, 2: 85, 4: 17}[depth])
     if color in (0, 4):
-        return np.repeat(pixels[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(pixels[:, :, :3])
+        return samples[:, :, 0], "L"
+    return samples, "RGBA" if color == 6 else "RGB"
 
 
 _UNFILTER_GROUP = 64  # images unfiltered together; bounds the int16 copies
@@ -159,16 +243,22 @@ def decode_pngs(datas) -> list[np.ndarray]:
     `Image.open(f).convert("RGB")` gives them: grey is replicated to three
     channels, a palette is looked up and alpha is dropped.
 
-    Reads 8-bit, non-interlaced images of colour types 0, 2, 3, 4 and 6;
-    any other image (16-bit, fewer bits, Adam7, not a PNG) raises
-    NotImplementedError. Filtered images of one shape are unfiltered
-    together, up to 64 at a time (`_unfilter`).
+    Reads every colour type at every bit depth the PNG specification allows
+    (1, 2, 4, 8 and 16), Adam7-interlaced or not; a file that is not a
+    PNG raises NotImplementedError, a malformed one ValueError. Filtered
+    8-bit non-interlaced images of one shape are unfiltered together, up to
+    64 at a time (`_unfilter`); other images one at a time.
     """
     read = [_read_png(d) for d in datas]
     pixels: list = [None] * len(read)
     groups: dict = {}
-    for i, ((w, h, _, color, _, _, _), _, rows) in enumerate(read):
+    for i, (header, _, raw) in enumerate(read):
+        w, h, depth, color, _, _, interlace = header
         bpp = _PNG_CHANNELS[color]
+        if depth != 8 or interlace:
+            pixels[i] = _png_samples(header, raw)
+            continue
+        rows = raw.reshape(h, w * bpp + 1)
         if rows[:, 0].any():
             groups.setdefault((h, w, bpp), []).append(i)
         else:  # no row filtered: the port's own PNGs
@@ -176,11 +266,11 @@ def decode_pngs(datas) -> list[np.ndarray]:
     for (h, w, bpp), members in groups.items():
         for k in range(0, len(members), _UNFILTER_GROUP):
             part = members[k:k + _UNFILTER_GROUP]
-            stack = np.stack([read[i][2] for i in part])
+            stack = np.stack([read[i][2].reshape(h, w * bpp + 1) for i in part])
             done = _unfilter(stack[:, :, 0], stack[:, :, 1:].reshape(len(part), h, w, bpp))
             for i, img in zip(part, done):
                 pixels[i] = img
-    return [_to_rgb(p, r[0][3], r[1]) for p, r in zip(pixels, read)]
+    return [to_rgb(*_png_mode(p, r[0][3], r[1], r[0][2])) for p, r in zip(pixels, read)]
 
 
 def decode_png(data: bytes) -> np.ndarray:
@@ -188,31 +278,81 @@ def decode_png(data: bytes) -> np.ndarray:
     return decode_pngs([data])[0]
 
 
+def image_format(data: bytes) -> str | None:
+    """The format of an image file's bytes, told by its first bytes as PIL
+    tells it (not by the file's extension): "png", "jpeg", "webp", "bmp",
+    "netpbm", "tiff", or None."""
+    from .data.webp import is_webp
+
+    if data.startswith(_PNG_SIGNATURE):
+        return "png"
+    if data.startswith(b"\xff\xd8\xff"):
+        return "jpeg"
+    if is_webp(data):
+        return "webp"
+    if data.startswith(b"BM"):
+        return "bmp"
+    if len(data) >= 2 and data[:1] == b"P" and data[1:2] in b"0123456fy":
+        return "netpbm"
+    if data[:4] in (b"II*\0", b"MM\0*", b"MM*\0", b"II\0*", b"II+\0", b"MM\0+"):
+        return "tiff"
+    return None
+
+
+def to_rgb(pixels: np.ndarray, mode: str) -> np.ndarray:
+    """(H, W, 3) uint8 of a decoder's pixels in PIL's `mode`, as PIL's
+    `convert("RGB")` gives them: "L" (and "1" as 0/255) replicated, "I"
+    (and "I;16") clipped to 0-255 and replicated, "RGBA" without its alpha,
+    "CMYK" by Pillow's Convert.c cmyk2rgb (255 - K - C(255 - K)/255, the
+    product rounded as its MULDIV255)."""
+    if mode == "RGB":
+        return np.ascontiguousarray(pixels)
+    if mode == "RGBA":
+        return np.ascontiguousarray(pixels[:, :, :3])
+    if mode == "L":
+        return np.repeat(pixels[:, :, None], 3, axis=2)
+    if mode == "I":
+        return np.repeat(np.clip(pixels, 0, 255).astype(np.uint8)[:, :, None], 3, axis=2)
+    if mode == "CMYK":
+        nk = 255 - pixels[:, :, 3:].astype(np.int32)
+        t = pixels[:, :, :3].astype(np.int32) * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+    raise ValueError(f"no RGB conversion for mode {mode!r}")
+
+
 def decode_images(datas) -> list[np.ndarray]:
     """(H, W, 3) uint8 pixels of each image file's bytes, as PIL's
     `Image.open(f).convert("RGB")` gives them, the format told by its first
-    bytes: PNGs through `decode_pngs` (together), JPEGs through
-    `data.jpeg.decode_jpeg` (grey replicated to three channels), WebP files
-    (RIFF....WEBP, the LSUN release's values) through `data.webp.decode_webp`.
-    Any other format raises NotImplementedError naming ROADMAP.md Queue 1
-    item 13."""
-    from .data.jpeg import SOI, decode_jpeg
-    from .data.webp import decode_webp, is_webp
+    bytes (`image_format`): PNGs through `decode_pngs` (together), JPEGs
+    through `data.jpeg.decode_jpeg`, WebP files through
+    `data.webp.decode_webp`, BMP through `data.bmp.decode_bmp`, PBM, PGM
+    and PPM through `data.netpbm.decode_netpbm`, TIFF through
+    `data.tiff.decode_tiff`; each decoder's mode to RGB by `to_rgb`. A
+    format none of them reads raises NotImplementedError naming ROADMAP.md
+    Queue 1 item 13i, a malformed file ValueError."""
+    from .data import bmp, jpeg, netpbm, tiff, webp
 
     datas = [bytes(d) for d in datas]
-    for d in datas:
-        if not (d.startswith(_PNG_SIGNATURE) or d.startswith(SOI) or is_webp(d)):
-            raise _not_decodable("an image that is neither PNG, JPEG nor WebP")
-    pngs = [i for i, d in enumerate(datas) if d.startswith(_PNG_SIGNATURE)]
+    kinds = [image_format(d) for d in datas]
+    for k in kinds:
+        if k is None:
+            raise _not_decodable("an image in a format the port does not read")
+    pngs = [i for i, k in enumerate(kinds) if k == "png"]
     out: list = [None] * len(datas)
     for i, img in zip(pngs, decode_pngs([datas[i] for i in pngs])):
         out[i] = img
-    for i, d in enumerate(datas):
-        if out[i] is None and is_webp(d):
-            out[i] = decode_webp(d)
-        elif out[i] is None:
-            img = decode_jpeg(d)
-            out[i] = np.repeat(img[:, :, None], 3, axis=2) if img.ndim == 2 else img
+    for i, (d, k) in enumerate(zip(datas, kinds)):
+        if k == "webp":
+            out[i] = webp.decode_webp(d)
+        elif k == "jpeg":
+            img = jpeg.decode_jpeg(d)
+            out[i] = to_rgb(img, "L" if img.ndim == 2 else {3: "RGB", 4: "CMYK"}[img.shape[2]])
+        elif k == "bmp":
+            out[i] = to_rgb(*bmp.decode_bmp(d))
+        elif k == "netpbm":
+            out[i] = to_rgb(*netpbm.decode_netpbm(d))
+        elif k == "tiff":
+            out[i] = to_rgb(*tiff.decode_tiff(d))
     return out
 
 

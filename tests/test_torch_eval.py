@@ -27,6 +27,7 @@ from ddgan_tpu.eval import simple_metrics as jsimple
 from ddgan_torch.eval import fid, inception, inception_score, simple_metrics
 from ddgan_torch.utils import decode_images, decode_png, decode_pngs, encode_png
 
+import _torch_imagewriters as W
 from _torch_port import one_torch_thread  # noqa: F401
 
 
@@ -122,27 +123,151 @@ def test_decode_png_undoes_every_row_filter(color):
 
 
 def test_decode_png_refuses_what_it_does_not_read(tmp_path):
-    pixels = np.zeros((4, 12), np.uint8)
-    for data in (_png(pixels, 2, [0] * 4, interlace=1), _png(pixels, 2, [0] * 4, depth=16)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            decode_png(data)
-    buf = io.BytesIO()
-    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000, "I;16").save(buf, "PNG")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        decode_png(buf.getvalue())
     buf = io.BytesIO()
     Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(buf, "JPEG")
     with pytest.raises(NotImplementedError, match="item 13"):
         decode_png(buf.getvalue())
+    pixels = np.zeros((4, 12), np.uint8)
     good = _png(pixels, 2, [1] * 4)
     with pytest.raises(ValueError, match="CRC"):
         decode_png(good[:40] + bytes([good[40] ^ 1]) + good[41:])
-    # the FID loader: a progressive JPEG, and a format it does not read
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "a.jpg", progressive=True)
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "b.bmp")
-    for name in ("a.jpg", "b.bmp"):
-        with pytest.raises(NotImplementedError, match="item 13"):
+    # the FID loader: a format and layouts the port does not read
+    refused = W.refused(Image)
+    for name, data in (("a.gif", refused["gif"]), ("b.tif", refused["tiff JPEG (compression 7)"]),
+                       ("c.jpg", refused["jpeg lossless (SOF3)"])):
+        (tmp_path / name).write_bytes(data)
+        with pytest.raises(NotImplementedError, match="item 13i"):
             fid.get_activations([tmp_path / name], lambda b: b.mean((1, 2)), dims=3)
+
+
+def test_decode_png_reads_what_it_once_refused(tmp_path):
+    """Adam7, 16-bit and PIL's "I;16" PNGs equal PIL; the FID loader reads
+    a progressive JPEG and a BMP as the JAX package does."""
+    rs = np.random.RandomState(11)
+    datas = [W.png(rs.randint(0, 256, (4, 4, 3)), 2, 8, interlace=1),
+             W.png(rs.randint(0, 65536, (4, 4, 3)), 2, 16)]
+    buf = io.BytesIO()
+    Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000, "I;16").save(buf, "PNG")
+    datas.append(buf.getvalue())
+    for data in datas:
+        np.testing.assert_array_equal(decode_png(data),
+                                      np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+    Image.fromarray(_smooth(rs, 8, 8, 3)).save(tmp_path / "a.jpg", progressive=True)
+    Image.fromarray(_smooth(rs, 8, 8, 3)).save(tmp_path / "b.bmp")
+    for name in ("a.jpg", "b.bmp"):
+        np.testing.assert_array_equal(fid._load_images_01([tmp_path / name])[0],
+                                      jfid._load_image_01(tmp_path / name))
+
+
+@pytest.mark.parametrize("interlace", [0, 1], ids=["plain", "adam7"])
+@pytest.mark.parametrize("color, depth", W.PNG_LAYOUTS,
+                         ids=[f"c{c}d{d}" for c, d in W.PNG_LAYOUTS])
+def test_png_depths_and_adam7_equal_pil(color, depth, interlace):
+    """Every colour type at every depth, Adam7 or not, at every size from
+    1x1 to 9x9 (where Adam7's passes are empty) and at 17x13, one call:
+    grey 1-bit as 0/255, 2- and 4-bit x85 and x17, 16-bit grey clipped at
+    255 ("I;16"), 16-bit colour by its high bytes, sub-byte palettes."""
+    rs = np.random.RandomState(color * 32 + depth + interlace)
+    sizes = [(h, w) for h in range(1, 10) for w in range(1, 10)] + [(17, 13)]
+    datas = [W.png_file(rs, color, depth, interlace, h, w) for h, w in sizes]
+    for (h, w), data, img in zip(sizes, datas, decode_pngs(datas)):
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        assert img.shape == (h, w, 3)
+        np.testing.assert_array_equal(img, want, err_msg=f"{h}x{w}")
+
+
+def test_png_values_at_16_bits_follow_pil():
+    """16-bit grey is clipped, not scaled (0, 100, 255, 256, 65535 -> 0,
+    100, 255, 255, 255); 16-bit RGB takes each sample's high byte."""
+    grey = W.png(np.array([0, 100, 255, 256, 65535]).reshape(1, 5, 1), 0, 16)
+    assert decode_png(grey)[0, :, 0].tolist() == [0, 100, 255, 255, 255]
+    rgb = W.png(np.array([0x1234, 0x80FF, 0x00FF]).reshape(1, 1, 3), 2, 16)
+    assert decode_png(rgb)[0, 0].tolist() == [18, 128, 0]
+    for data in (grey, rgb):
+        np.testing.assert_array_equal(decode_png(data),
+                                      np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+def test_png_pil_files_at_every_depth():
+    cases = [(label, d) for label, d in W.png_matrix(Image, sizes=[(3, 5)])
+             if label.startswith("png PIL")]
+    assert len(cases) == 5
+    for label, data in cases:
+        np.testing.assert_array_equal(decode_png(data),
+                                      np.asarray(Image.open(io.BytesIO(data)).convert("RGB")),
+                                      err_msg=label)
+
+
+def _mixed_folder(directory, rs) -> list:
+    """One file of each format and layout the port reads, by extension the
+    FID lists (bmp, jpg, pgm, png, ppm, tif, webp)."""
+    import _torch_jpeg_arith as A
+
+    directory.mkdir(parents=True, exist_ok=True)
+    arr = _smooth(rs, 21, 19, 3)
+    base = io.BytesIO()
+    Image.fromarray(arr).save(base, "JPEG", quality=90)
+    files = {
+        "bmp24.bmp": W.bmp(arr, 24), "bmp8.bmp": W.bmp(rs.randint(0, 256, (21, 19)), 8,
+                                                        palette=rs.randint(0, 256, (256, 3))),
+        "bmp_rle4.bmp": W.bmp(np.repeat(rs.randint(0, 16, (21, 7)), 3, 1)[:, :19], 4,
+                              palette=rs.randint(0, 256, (16, 3)), compression=2),
+        "grey.pgm": W.netpbm(arr[:, :, 0], "P5"), "wide.pgm": W.netpbm(arr[:, :, 1] * 3, "P2", 1000),
+        "rgb.ppm": W.netpbm(arr, "P6"), "bits.pbm.ppm": W.netpbm(arr[:, :, 0] > 127, "P4"),
+        "lzw.tif": W.tiff(arr, photometric=2, compression=5, predictor=2),
+        "deflate.tiff": W.tiff(arr.astype(np.uint16) * 257, photometric=2, bits=16,
+                               compression=8, order="MM", tile=(16, 16)),
+        "packbits.tif": W.tiff(arr, photometric=2, compression=32773, planar=2),
+        "arith.jpg": A.to_arithmetic(base.getvalue()),
+        "arith_prog.jpg": A.to_arithmetic(base.getvalue(), progressive=True),
+        "png16.png": W.png(arr.astype(np.uint16) * 300, 2, 16),
+        "adam7.png": W.png(arr, 2, 8, interlace=1),
+        "pal4.png": W.png(rs.randint(0, 16, (21, 19, 1)), 3, 4, palette=rs.randint(0, 256, (16, 3))),
+    }
+    for name, data in files.items():
+        (directory / name).write_bytes(data)
+    Image.fromarray(arr).save(directory / "prog.jpg", quality=90, progressive=True)
+    Image.fromarray(arr).convert("CMYK").save(directory / "cmyk.jpg", quality=90)
+    return sorted(directory.iterdir())
+
+
+@pytest.mark.parametrize("resize", [0, 16])
+def test_fid_loader_reads_every_format_as_the_jax_package_does(tmp_path, resize):
+    """A folder of BMP, PGM, PPM, TIFF, progressive, arithmetic and CMYK
+    JPEG, 16-bit, Adam7 and 4-bit palette PNG files through the port's FID
+    reader and `ddgan_tpu/eval/fid.py:_load_image_01`, exactly."""
+    _mixed_folder(tmp_path, np.random.RandomState(12))
+    files = fid.list_image_files(tmp_path)
+    assert files == jfid.list_image_files(tmp_path) and len(files) == 17
+    got = fid._load_images_01(files, resize=resize)
+    for f, img in zip(files, got):
+        np.testing.assert_array_equal(img, jfid._load_image_01(f, resize=resize), str(f))
+
+
+def test_dataset_items_of_every_format_equal_jax(tmp_path):
+    """`DatasetCustom` (`*/*.jpg`: progressive, arithmetic, CMYK and the
+    other formats under a .jpg name, which both packages tell by their
+    bytes) and `DataReader` (`*/*.png`) items against the JAX package's."""
+    from ddgan_tpu.data import datasets as jds
+
+    from ddgan_torch.data import datasets as ds
+
+    rs = np.random.RandomState(13)
+    files = _mixed_folder(tmp_path / "src", rs)
+    for k, f in enumerate(files):
+        for root in (tmp_path / "custom" / "train" / "a", tmp_path / "reader" / "b"):
+            root.mkdir(parents=True, exist_ok=True)
+            ext = "jpg" if "custom" in str(root) else "png"
+            (root / f"{k:02d}.{ext}").write_bytes(f.read_bytes())
+    pairs = [(ds.DatasetCustom(str(tmp_path / "custom")),
+              jds.DatasetCustom(str(tmp_path / "custom"))),
+             (ds.DataReader(str(tmp_path / "reader")), jds.DataReader(str(tmp_path / "reader")))]
+    for mine, theirs in pairs:
+        assert len(mine) == len(theirs) == len(files)
+        for i in range(len(mine)):
+            a, b = mine[i], theirs[i]
+            a, b = (a[0], b[0]) if isinstance(a, tuple) else (a, b)
+            np.testing.assert_array_equal(a, np.asarray(b), f"item {i}")
 
 
 def test_decode_pngs_decodes_a_mixed_batch_as_pil_does():

@@ -1,12 +1,20 @@
-"""The port's baseline JPEG decoder (`ddgan_torch.data.jpeg`, C++ built
-with the host compiler at first use) against PIL, bit for bit, on JPEGs
-that PIL writes into tmp_path: quality 50, 75, 95 and 100; 4:4:4, 4:2:2,
-4:2:0 and grey; sizes 1x1, 7x9, 17x33 and 255x257 (not multiples of the
-MCU); optimized Huffman tables; restart markers; 16-bit DQT tables. Files
-it does not read (progressive, CMYK, RGB-coded) raise NotImplementedError
-naming ROADMAP.md Queue 1 item 13; broken files raise ValueError.
+"""The port's JPEG decoder (`ddgan_torch.data.jpeg`, C++ built with the
+host compiler at first use) against PIL, bit for bit, on JPEGs that PIL
+writes into tmp_path: quality 50, 75, 95 and 100; 4:4:4, 4:2:2, 4:2:0 and
+grey; sizes 1x1, 7x9, 17x33 and 255x257 (not multiples of the MCU);
+optimized Huffman tables; restart markers; 16-bit DQT tables. Then the
+matrix of `tests/_torch_imagewriters.py:jpeg_matrix`: progressive files
+(PIL's scan script) in every layout and size; arithmetic-coded ones,
+sequential and progressive, re-encoded from PIL's baseline files by
+`tests/_torch_jpeg_arith.py` (which PIL decodes to the baseline pixels);
+restart markers and DAC conditioning; CMYK, YCCK and RGB-coded files; the
+decoder's Qe table against libjpeg's `jpeg_aritab`. Files it does not
+read (lossless, hierarchical, 12-bit, progressive scans libjpeg would
+smooth) raise NotImplementedError naming ROADMAP.md Queue 1 item 13i;
+broken files raise ValueError.
 """
 
+import functools
 import io
 import struct
 
@@ -14,23 +22,15 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import _torch_imagewriters as W
+import _torch_jpeg_arith as A
 from ddgan_torch.data.jpeg import decode_jpeg
+from ddgan_torch.utils import decode_images
 
 SIZES = [(1, 1), (7, 9), (17, 33), (255, 257)]  # (H, W)
 QUALITIES = [50, 75, 95, 100]
-LAYOUTS = {"4:4:4": 0, "4:2:2": 1, "4:2:0": 2, "L": None}
-
-
-def smooth_field(rs, h: int, w: int, channels: int) -> np.ndarray:
-    """A seeded image: a smooth field per channel plus noise, as photographs
-    give a JPEG coder both flat blocks and busy ones."""
-    yy, xx = np.mgrid[0:h, 0:w]
-    planes = []
-    for _ in range(channels):
-        a, b, phase = rs.uniform(0.02, 0.25, 3)
-        planes.append(127 + 90 * np.sin(a * xx + phase) * np.cos(b * yy)
-                      + rs.normal(0, 14, (h, w)))
-    return np.clip(np.stack(planes, -1), 0, 255).astype(np.uint8)
+LAYOUTS = W.JPEG_LAYOUTS
+smooth_field = W.smooth_field  # a smooth field per channel plus noise
 
 
 def _jpeg(tmp_path, layout: str, h: int, w: int, seed: int, **save) -> bytes:
@@ -106,17 +106,98 @@ def test_16bit_quantization_tables_equal_pil(tmp_path, layout):
     ("CMYK", lambda im: (im.convert("CMYK"), {})),
     ("RGB-coded", lambda im: (im, dict(keep_rgb=True))),
 ])
-def test_files_it_does_not_read_raise_naming_item_13(what, make):
+def test_layouts_once_refused_equal_pil(what, make):
     im, save = make(Image.fromarray(smooth_field(np.random.RandomState(0), 16, 16, 3)))
     buf = io.BytesIO()
     im.save(buf, "JPEG", quality=80, **save)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        decode_jpeg(buf.getvalue())
+    _assert_pil(buf.getvalue())
+
+
+@pytest.mark.parametrize("what", [k for k in W.refused(Image) if k.startswith("jpeg")])
+def test_files_it_does_not_read_raise_naming_item_13(what):
+    with pytest.raises(NotImplementedError, match="item 13i"):
+        decode_jpeg(W.refused(Image)[what])
+
+
+@functools.cache
+def _matrix() -> tuple:
+    return tuple(W.jpeg_matrix(Image, A))
+
+
+def _matrix_equals_pil(prefix: str) -> None:
+    cases = [(label, d) for label, d in _matrix() if label.startswith(prefix)]
+    assert cases
+    for label, data in cases:
+        want = np.asarray(Image.open(io.BytesIO(data)))
+        got = decode_jpeg(data)
+        assert got.dtype == np.uint8 and got.shape == want.shape, label
+        np.testing.assert_array_equal(got, want, err_msg=label)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_progressive_matrix_equals_pil(layout):
+    _matrix_equals_pil(f"jpeg progressive {layout} ")
+
+
+@pytest.mark.parametrize("kind", ["sequential", "progressive"])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_arithmetic_matrix_equals_pil(kind, layout):
+    """Every size, restart markers every 2 MCUs, DAC conditioning."""
+    _matrix_equals_pil(f"jpeg arithmetic {kind} {layout} ")
+
+
+@pytest.mark.parametrize("kind", ["CMYK", "YCCK", "RGB-coded"])
+def test_cmyk_ycck_and_rgb_coded_equal_pil(kind):
+    """CMYK and YCCK come back as PIL's "CMYK" (Adobe inverted), which
+    `decode_images` converts as `convert("RGB")` does; RGB-coded files
+    (Adobe transform 0, or IDs 'R', 'G', 'B') take no colour transform."""
+    _matrix_equals_pil(f"jpeg {kind} ")
+    for label, data in _matrix():
+        if label.startswith(f"jpeg {kind} "):
+            np.testing.assert_array_equal(
+                decode_images([data])[0], np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+
+
+def test_arithmetic_files_decode_in_pil_to_the_baseline_pixels(tmp_path):
+    """The test writer's proof: libjpeg decodes its arithmetic-coded files
+    (sequential and progressive, restarts, DAC) to the pixels of the
+    baseline file whose coefficients they re-encode."""
+    for layout in LAYOUTS:
+        data = _jpeg(tmp_path, layout, 23, 41, seed=9, quality=90)
+        want = np.asarray(Image.open(io.BytesIO(data)))
+        for kw in (dict(), dict(progressive=True), dict(restart=1), dict(progressive=True,
+                                                                         restart=3, dac=True)):
+            arith = A.to_arithmetic(data, **kw)
+            assert (b"\xff\xca" if kw.get("progressive") else b"\xff\xc9") in arith
+            np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(arith))), want)
+
+
+def test_qe_table_is_libjpegs_jpeg_aritab():
+    """The decoder's T.81 Table D.2 against `jpeg_aritab` of the libjpeg
+    that PIL bundles (912 bytes: 114 longs), read through ctypes."""
+    import ctypes
+    import glob
+    import os
+
+    import PIL
+
+    from ddgan_torch.data import jpeg
+
+    libs = glob.glob(os.path.join(os.path.dirname(PIL.__file__), "..", "pillow.libs",
+                                  "libjpeg*.so*"))
+    if not libs:
+        pytest.skip("this PIL bundles no libjpeg to hold the table against")
+    table = (ctypes.c_long * 114).in_dll(ctypes.CDLL(libs[0]), "jpeg_aritab")
+    assert ctypes.sizeof(table) == 912
+    assert jpeg.aritab() == list(table) == A.QE
 
 
 def test_broken_files_raise_value_error(tmp_path):
     data = _jpeg(tmp_path, "4:2:0", 16, 16, seed=1, quality=80)
-    for broken in (b"", b"\xff\xd8\xff\xe0", data[:len(data) // 2], b"\x89PNG" + data[4:]):
+    arith = A.to_arithmetic(data, progressive=True)
+    for broken in (b"", b"\xff\xd8\xff\xe0", data[:len(data) // 2], b"\x89PNG" + data[4:],
+                   arith[:len(arith) // 2],
+                   *[v for k, v in W.broken(Image).items() if k.startswith("jpeg")]):
         with pytest.raises(ValueError, match="malformed JPEG"):
             decode_jpeg(broken)
 

@@ -1,7 +1,7 @@
 """Package rules of the port (`ddgan_torch`): it never imports JAX, the
 JAX package, PIL, msgpack or lmdb (its flax reader, its image readers and
 its LMDB reader are its own), scipy only for the FID's matrix square root,
-its JPEG and WebP decoders build only into the git-ignored `ddgan_torch/_build/`,
+its JPEG, WebP and TIFF decoders build only into the git-ignored `ddgan_torch/_build/`,
 its entry points (the train CLIs among them) run on the GPU unless the CPU
 is asked for, its config schema is the JAX package's, every module of the
 JAX package has its counterpart, its file helpers are the JAX package's,
@@ -120,11 +120,12 @@ def test_library_layers_import_no_jax():
 
 
 def test_image_file_modules_import_no_pil_or_jax():
-    """The image readers of the port, each alone: the resize, the JPEG and
-    WebP decoders' bindings, the volume cache, the host build helper, the
-    datasets, the LMDB datasets and the FID loader (their JAX counterparts
-    import PIL)."""
+    """The image readers of the port, each alone: the resize, the JPEG,
+    WebP and TIFF decoders' bindings, the BMP and Netpbm readers, the
+    volume cache, the host build helper, the datasets, the LMDB datasets
+    and the FID loader (their JAX counterparts import PIL)."""
     mods = ["ddgan_torch.data.resize", "ddgan_torch.data.jpeg", "ddgan_torch.data.webp",
+            "ddgan_torch.data.bmp", "ddgan_torch.data.netpbm", "ddgan_torch.data.tiff",
             "ddgan_torch.data.slicecache", "ddgan_torch.ops._cxx", "ddgan_torch.utils",
             "ddgan_torch.data.datasets", "ddgan_torch.data.lmdb_datasets",
             "ddgan_torch.data.factory", "ddgan_torch.eval.fid"]
@@ -134,6 +135,9 @@ def test_image_file_modules_import_no_pil_or_jax():
         "from ddgan_torch.utils import decode_images\n"
         "from ddgan_torch.data.jpeg import decode_jpeg\n"
         "from ddgan_torch.data.webp import decode_webp\n"
+        "from ddgan_torch.data.bmp import decode_bmp\n"
+        "from ddgan_torch.data.netpbm import decode_netpbm\n"
+        "from ddgan_torch.data.tiff import decode_tiff\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -143,6 +147,7 @@ def test_image_file_modules_import_no_pil_or_jax():
     assert res.returncode == 0 and res.stdout.strip() == "[]", res.stdout + res.stderr
     sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
     assert {"ddgan_torch/data/resize.py", "ddgan_torch/data/jpeg.py", "ddgan_torch/data/webp.py",
+            "ddgan_torch/data/bmp.py", "ddgan_torch/data/netpbm.py", "ddgan_torch/data/tiff.py",
             "ddgan_torch/data/slicecache.py", "ddgan_torch/ops/_cxx.py"} <= sources
 
 
@@ -199,6 +204,29 @@ def test_webp_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
     assert res.returncode == 0 and "malformed" in res.stdout, res.stdout + res.stderr
     added = {p for p in tmp_path.rglob("*") if p.is_file()} - before
     assert [(p.parent, p.name.startswith("libwebp_decode_")) for p in added] == [
+        (pkg / "_build", True)]
+
+
+def test_tiff_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
+    """As the JPEG decoder: a copy of the package builds tiff_decode.cpp at
+    first use into ddgan_torch/_build/ and adds nothing else; a malformed
+    LZW strip raises ValueError, with no fallback."""
+    pkg = tmp_path / "ddgan_torch"
+    shutil.copytree(ROOT / "ddgan_torch", pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    before = {p for p in tmp_path.rglob("*") if p.is_file()}
+    code = ("from ddgan_torch.data import tiff\n"
+            "try:\n"
+            "    tiff._decompress(5, b'\\x80\\xff', 64)\n"
+            "except ValueError as e:\n"
+            "    print('malformed:', e)\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CXX")}
+    env["PYTHONDONTWRITEBYTECODE"] = "1"
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "malformed" in res.stdout, res.stdout + res.stderr
+    added = {p for p in tmp_path.rglob("*") if p.is_file()} - before
+    assert [(p.parent, p.name.startswith("libtiff_decode_")) for p in added] == [
         (pkg / "_build", True)]
 
 
@@ -360,8 +388,9 @@ def _chip_smoke():
 def test_chip_smoke_writes_its_real_set_filtered_as_pil_does(tmp_path):
     """Phase 30's real directory: PNGs whose rows take the filter PIL's
     adaptive heuristic picks (Sub and Paeth on smooth images), which both
-    the port and PIL decode to the pixels written; the loader check passes
-    on them and fails on a wrong pixel."""
+    the port and PIL decode to the pixels written, and every 16th file in
+    one of the other layouts in turn; the loader check passes on them
+    (every file against PIL too) and fails on a wrong pixel."""
     import io
 
     import numpy as np
@@ -386,6 +415,13 @@ def test_chip_smoke_writes_its_real_set_filtered_as_pil_does(tmp_path):
     written["pixels"][59] = written["pixels"][59] ^ 1
     with pytest.raises(AssertionError, match="1 of 60"):
         cs.decode_check(fid, tmp_path / "real", written)
+    n = cs.REAL_SET_EVERY * len(cs.REAL_SET_LAYOUTS)
+    mixed = cs.write_filtered_set(tmp_path / "mixed", n, 32, seed=2, Image=Image)
+    assert {f.suffix for f in fid.list_image_files(tmp_path / "mixed")} == {
+        ".bmp", ".ppm", ".pgm", ".tif", ".jpg", ".png"}
+    got = cs.decode_check(fid, tmp_path / "mixed", mixed, Image=Image)
+    assert got["files"] == n and set(got["ms_by_layout"]) == set(cs.REAL_SET_LAYOUTS) | {
+        "png filtered"}
 
 
 _PTXAS_REPORT = """\
@@ -455,10 +491,12 @@ def test_chip_smoke_adam_ratio_bound_holds_and_is_reached(betas):
 
 
 def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
-    """Phases 47-48's host code on the CPU: the JPEG matrix and the resize
-    cases against this machine's PIL, and the custom loader's batch 0
-    against the script's copy of the JAX transform arithmetic, which must
-    equal the JAX package's own items."""
+    """Phases 47-48's and 56's host code on the CPU: the JPEG matrix and the
+    resize cases against this machine's PIL, the matrices of every other
+    format and coding, and the custom loader's batch 0 (baseline,
+    progressive and arithmetic-coded files) against the script's copy of
+    the JAX transform arithmetic, which must equal the JAX package's own
+    items; phase 48's codings put one of each kind in batch 0."""
     import numpy as np
     from PIL import Image
 
@@ -472,7 +510,15 @@ def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
     assert jpeg["exact"] == jpeg["files"] == 76
     resize = cs.resize_against_pil(Image)
     assert resize["exact"] == resize["cases"] == 171
-    cs.write_custom_jpegs(Image, tmp_path / "c", 6, 40, 36, seed=1)
+    formats = cs.image_formats_against_pil(Image, "this machine's CPU")
+    assert formats["exact"] == formats["files"] == 2148
+    assert formats["malformed_refused"] == 16 and formats["refused_13i"] == 14
+    kinds = cs.custom_kinds([40, 7, 0, 63], cs.CUSTOM_IMAGES, seed=0)
+    assert [kinds[i] for i in (40, 7, 0, 63)] == list(cs.CUSTOM_KINDS)
+    assert {k: kinds.count(k) for k in cs.CUSTOM_KINDS} == cs.CUSTOM_KINDS
+    cs.write_custom_jpegs(Image, tmp_path / "c", 6, 40, 36, seed=1,
+                          kinds=["baseline", "progressive", "arithmetic",
+                                 "arithmetic progressive", "baseline", "progressive"])
     kw = dict(dataset="custom", data_dir=str(tmp_path / "c"), mode="train", do_resize="yes",
               to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes", image_size=32,
               num_channels=3, batch_size=3)

@@ -228,11 +228,14 @@ def rank_batch(batch_size: int, world: int, compute_fid: bool) -> int:
     return batch_size if compute_fid else max(1, -(-batch_size // world))
 
 
-def sample_rank(rank: int, local_rank: int, args: argparse.Namespace):
+def sample_rank(rank: int, local_rank: int, args: argparse.Namespace,
+                feature_fn: Callable[[np.ndarray], np.ndarray] | None = None,
+                dims: int = 2048):
     """The CLI on one rank of `args.world` (1: this process alone): sample,
     write this rank's files and, with --compute_fid, the FID on rank 0 once
-    every rank's files are on disk. Returns the FID on rank 0 of an FID run,
-    else None."""
+    every rank's files are on disk, in the features of `feature_fn`
+    ((B, H, W, C) in [0, 1] -> (B, dims); default the FID-InceptionV3's
+    pool3 at `dims`). Returns the FID on rank 0 of an FID run, else None."""
     from ..parallel import default_group, rank_device
 
     world = int(getattr(args, "world", 1))
@@ -260,8 +263,8 @@ def sample_rank(rank: int, local_rank: int, args: argparse.Namespace):
         from ..eval.inception import default_feature_fn
 
         fid = calculate_fid_given_paths(
-            [str(save_dir), args.real_img_dir], batch_size=50, dims=2048,
-            feature_fn=default_feature_fn(dims=2048, device=device))
+            [str(save_dir), args.real_img_dir], batch_size=50, dims=dims,
+            feature_fn=feature_fn or default_feature_fn(dims=dims, device=device))
         print(f"FID = {fid}")
         if args.fid_output_path:
             out_dir = os.path.dirname(args.fid_output_path)
@@ -290,17 +293,21 @@ def sample_rank(rank: int, local_rank: int, args: argparse.Namespace):
     return None
 
 
-def sample_and_test(args: argparse.Namespace, **launch_kw):
+def sample_and_test(args: argparse.Namespace, feature_fn=None, dims: int = 2048,
+                    **launch_kw):
     """The CLI: in this process, or over `num_proc_node · num_process_per_node`
     ranks (`launch_kw`: `parallel.launch`'s keywords, such as `init_method`).
-    Returns the FID of an FID run (read back from fid_output_path after a
-    spawned run), else None."""
+    `feature_fn` and `dims` as `sample_rank` takes them; a `feature_fn` runs
+    in this process only. Returns the FID of an FID run (read back from
+    fid_output_path after a spawned run), else None."""
     resolve_device(args.device)
     if args.compute_fid and not os.path.exists(args.real_img_dir):
         raise FileNotFoundError(f"Real image directory {args.real_img_dir} not found.")
     args.world = int(args.num_proc_node) * int(args.num_process_per_node)
     if args.world <= 1:
-        return sample_rank(0, 0, args)
+        return sample_rank(0, 0, args, feature_fn, dims)
+    if feature_fn is not None or dims != 2048:
+        raise ValueError("feature_fn and dims are taken by a run in one process only")
     from ..parallel import launch
 
     exp_path = Path(f"./saved_info/dd_gan/{args.dataset}/{args.exp}")
@@ -314,9 +321,9 @@ def sample_and_test(args: argparse.Namespace, **launch_kw):
     return None
 
 
-def main(argv=None, **launch_kw):
+def main(argv=None, feature_fn=None, dims: int = 2048, **launch_kw):
     args = build_parser().parse_args(argv)
-    return sample_and_test(args, **launch_kw)
+    return sample_and_test(args, feature_fn, dims, **launch_kw)
 
 
 def entry() -> int:

@@ -180,13 +180,14 @@ def save_statistics(path: str, mu: np.ndarray, sigma: np.ndarray) -> None:
     np.savez(path, mu=mu, sigma=sigma)
 
 
-def main(argv=None):
+def main(argv=None, feature_fn: Callable | None = None):
     """Standalone FID CLI. (fid_score.py:72-83, :289-301)
 
     python -m ddgan_torch.eval.fid path/to/real path/to/fake
     python -m ddgan_torch.eval.fid --save-stats path/to/imgs stats.npz
 
-    On the GPU unless $DDGAN_TORCH_DEVICE=cpu.
+    On the GPU unless $DDGAN_TORCH_DEVICE=cpu. A caller may pass its own
+    `feature_fn` ((B, H, W, C) in [0, 1] -> (B, --dims)) for the Inception's.
     """
     import argparse
 
@@ -199,9 +200,10 @@ def main(argv=None):
     p.add_argument("--resize", type=int, default=0)
     args = p.parse_args(argv)
 
-    from .inception import default_feature_fn
+    if feature_fn is None:
+        from .inception import default_feature_fn
 
-    feature_fn = default_feature_fn(dims=args.dims)
+        feature_fn = default_feature_fn(dims=args.dims)
     if args.save_stats:
         files = list_image_files(args.path[0])
         mu, sigma = calculate_activation_statistics(

@@ -150,10 +150,12 @@ real ones are in the repository):
      batch 64 (phase 7's weights in a netG_1.pth), 2,112 samples against
      2,112 seeded 32² images that the phase writes, PNGs with a row filter
      chosen as PIL chooses it (the files a user's real directory holds)
-     and every 16th file in one of 12 other layouts in turn (24-bit and
+     and every 16th file in one of 20 other layouts in turn (24-bit and
      8-bit palette BMP, PPM, PGM, TIFF with LZW, Deflate or PackBits,
      progressive and arithmetic-coded JPEG, 16-bit, Adam7 and 4-bit
-     palette PNG; the tests' writers and PIL write them): 24
+     palette PNG, CCITT T.6 and T.4 2-D TIFF, YCbCr 4:2:0 JPEG-in-TIFF,
+     LZMA float TIFF with predictor 3, signed 16-bit TIFF, BigTIFF, 4:4:0
+     and 4:1:1 JPEG; the tests' writers and PIL write them): 24
      down2x and 24 up2x launches per sampler call and no pair_conv3x3, a
      finite FID > 0 that fid_output_path holds, the same FID from .npz
      statistics of both directories (`save_statistics`) within 1e-6
@@ -308,13 +310,15 @@ host:
      (phase 28's run and checks: bf16, batch 4, epochs 0 and 1 of 4 steps,
      K2 64 launches a step and K1 as `expected_fir_calls`, then the sampler
      CLI at 256²) on 64 seeded 320x288 JPEGs written at q95 as
-     `tools/quality_soak256.py:61` writes them, 32 baseline, 16
+     `tools/quality_soak256.py:61` writes them, 24 baseline, 16
      progressive, 8 arithmetic-coded sequential and 8 progressive (PIL's
-     baseline files re-encoded by the tests' `_torch_jpeg_arith.py`; a set
-     that covers the codings, not a traffic mix), the loader's batch 0
-     holding one of each, with do_resize (284x256), ToTensor, Normalize
-     and CenterCrop (256²); then the loop's loader: batch 0 against the
-     same four files decoded by PIL and put through the JAX package's
+     baseline files re-encoded by the tests' `_torch_jpeg_arith.py`), 4 at
+     4:4:0 and 4 at h4v1 (true 4:1:1; coded by the tests'
+     `_torch_imagewriters.py` with PIL's tables: a set that covers the
+     codings, not a traffic mix), the loader's batches 0 and 1 holding one
+     of each, with do_resize (284x256), ToTensor, Normalize and CenterCrop
+     (256²); then the loop's loader: batches 0 and 1 against the same
+     eight files decoded by PIL and put through the JAX package's
      transform arithmetic (copied here; max-abs <= 1e-6), and its seconds
      per batch beside the bare step, on that set and on the same 64
      images written all baseline;
@@ -396,20 +400,30 @@ reference:
      batch beside the bare step (phase 51's JPEG share beside it);
 
 BMP, PBM/PGM/PPM and TIFF (`ddgan_torch.data.bmp`, `data.netpbm`,
-`data.tiff` with C++ LZW and PackBits), progressive, arithmetic-coded,
-CMYK and RGB-coded JPEG and PNG at every bit depth and with Adam7, all
+`data.tiff` with C++ LZW, PackBits and CCITT, JPEG strips through the
+JPEG decoder), progressive, arithmetic-coded, CMYK and RGB-coded JPEG at
+any integral sampling and PNG at every bit depth and with Adam7, all
 through `utils.decode_images`; the tests' writers and PIL write the files
 and PIL is the reference:
 
  56. every file of the tests' matrices (`tests/_torch_imagewriters.py` and
-     `tests/_torch_jpeg_arith.py`, loaded by path) against this host's PIL,
-     bit for bit; their malformed files refused with ValueError and their
-     still-refused layouts (lossless, hierarchical and 12-bit JPEG, JPEG
-     whose scans libjpeg would smooth, JPEG-in-TIFF, CCITT, float and
-     YCbCr TIFF, BigTIFF, BMP with JPEG inside, PFM, GIF) with
-     NotImplementedError naming item 13i; ms per 256² image, the port's
-     and PIL's in turns: a q95 4:2:0 JPEG baseline, progressive and
-     arithmetic-coded, an LZW TIFF, a 24-bit BMP and a 16-bit PNG;
+     `tests/_torch_jpeg_arith.py`, loaded by path: CCITT, JPEG-in-TIFF,
+     old-style JPEG, YCbCr, LZMA, BigTIFF, float, signed and fill order 2
+     TIFF, JPEG at 4:4:0,
+     4:1:1 and other samplings, lossless JPEG at every predictor among
+     them, and the layouts once refused)
+     against this host's PIL, bit for bit; their malformed files refused
+     with ValueError and their still-refused layouts (arithmetic-coded
+     lossless, hierarchical and 12-bit JPEG, non-integral sampling ratios,
+     lossless JPEG asking for a colour conversion, JPEG whose
+     scans libjpeg would smooth, old-style JPEG with its tables in tags,
+     Zstd, uncompressed YCbCr, 4x4 YCbCr at an odd block count, CIELAB and
+     big-endian BigTIFF TIFF, BMP with JPEG inside, PFM, GIF)
+     with NotImplementedError naming item 13i; ms per image, the port's
+     and PIL's in turns: at 256², a q95 4:2:0 JPEG baseline, progressive
+     and arithmetic-coded, an LZW TIFF, a 24-bit BMP, a 16-bit PNG, a YCbCr
+     4:2:0 JPEG-in-TIFF, a float TIFF and a 4:4:0 JPEG; a 1728x2200 CCITT
+     Group 4 page;
  57. print the result, a `{"kernels": [...]}` line (the forward entries and
      one per backward role, with the launches of every driven path, the
      pyramids' 3-channel shapes timed beside each FIR kernel's rows), and
@@ -1979,7 +1993,9 @@ def encode_png_adaptive(arr: np.ndarray) -> tuple[bytes, np.ndarray]:
 # (written by the tests' writers and PIL), the rest adaptively filtered PNGs
 REAL_SET_LAYOUTS = ["bmp 24-bit", "bmp 8-bit palette", "ppm", "pgm", "tiff LZW", "tiff Deflate",
                     "tiff PackBits", "jpeg progressive", "jpeg arithmetic", "png 16-bit",
-                    "png Adam7", "png 4-bit palette"]
+                    "png Adam7", "png 4-bit palette", "tiff CCITT T.6", "tiff CCITT T.4 2-D",
+                    "tiff JPEG YCbCr 4:2:0", "tiff LZMA float predictor 3",
+                    "tiff signed 16-bit", "tiff BigTIFF LZW", "jpeg 4:4:0", "jpeg 4:1:1"]
 REAL_SET_EVERY = 16
 
 
@@ -2005,10 +2021,36 @@ def real_set_file(layout: str, px: np.ndarray, Image, writers, arith) -> tuple:
     if layout == "ppm":
         return "ppm", writers.netpbm(px, "P6"), px
     if layout == "pgm":
-        grey = px[:, :, 1]
-        return "pgm", writers.netpbm(grey, "P5"), np.repeat(grey[:, :, None], 3, axis=2)
+        return "pgm", writers.netpbm(px[:, :, 1], "P5"), np.repeat(px[:, :, 1:2], 3, axis=2)
+    grey = px[:, :, 1]
+    if layout.startswith("tiff CCITT"):
+        white = grey > 127
+        im = Image.fromarray(white.astype(np.uint8) * 255).convert("1")
+        data = writers.pil_tiff(Image, im, compression="group4" if layout.endswith("T.6")
+                                else "group3", tiffinfo={} if layout.endswith("T.6") else {292: 1})
+        return "tif", data, np.repeat(white[:, :, None] * np.uint8(255), 3, axis=2)
+    if layout == "tiff JPEG YCbCr 4:2:0":
+        return "tif", writers.jpeg_tiff(px, 6, [(2, 2), (1, 1), (1, 1)],
+                                        writers.jpeg_tables(Image, 90), rows_per_strip=16), None
+    if layout == "tiff LZMA float predictor 3":  # PIL's "F" to RGB truncates: grey + 0.25 -> grey
+        f = (grey.astype(np.float32) + 0.25)[:, :, None]
+        return "tif", writers.tiff(f, photometric=1, bits=32, sample_format=3,
+                                   compression=34925, predictor=3), np.repeat(grey[:, :, None], 3, 2)
+    if layout == "tiff signed 16-bit":
+        v = grey.astype(np.int16)[:, :, None] * 2 - 100
+        return "tif", writers.tiff(v, photometric=1, bits=16, sample_format=2,
+                                   compression=5, predictor=2), np.repeat(
+            np.clip(v, 0, 255).astype(np.uint8), 3, axis=2)
+    if layout.startswith("jpeg 4:"):
+        sampling = {"jpeg 4:4:0": [(1, 2), (1, 1), (1, 1)],
+                    "jpeg 4:1:1": [(4, 1), (1, 1), (1, 1)]}[layout]
+        return "jpg", writers.jpeg_encode(px, sampling, writers.jpeg_tables(Image, 90)), None
     if layout.startswith("tiff"):
-        comp = {"tiff LZW": 5, "tiff Deflate": 8, "tiff PackBits": 32773}[layout]
+        comp = {"tiff LZW": 5, "tiff Deflate": 8, "tiff PackBits": 32773,
+                "tiff BigTIFF LZW": 5}[layout]
+        if layout == "tiff BigTIFF LZW":
+            return "tif", writers.tiff(px, photometric=2, compression=comp, big=True,
+                                       rows_per_strip=8), px
         return "tif", writers.tiff(px, photometric=2, compression=comp,
                                    predictor=2 if comp == 5 else 1), px
     if layout == "png 16-bit":
@@ -2114,8 +2156,10 @@ def fid_cli_run(cfg, gen_sd, dev, reset_counts, counts) -> dict:
     a temp experiment (content_args.json, netG_1.pth) of the full-width
     flagship at batch 64, 2,112 samples against 2,112 seeded 32² images
     (PNGs filtered as PIL filters them, every 16th file BMP, PPM, PGM,
-    TIFF, progressive or arithmetic JPEG, or a 16-bit, Adam7 or palette
-    PNG), random Inception weights; the FID's checks and its time split;
+    TIFF (LZW, Deflate, PackBits, CCITT T.6 and T.4 2-D, YCbCr
+    JPEG-in-TIFF, LZMA float with predictor 3, signed 16-bit, BigTIFF),
+    progressive, arithmetic, 4:4:0 or 4:1:1 JPEG, or a 16-bit, Adam7 or
+    palette PNG), random Inception weights; the FID's checks and its time split;
     then the FID loader's decoding of the real set, each file against this
     host's PIL, and of filtered PNGs at 256²."""
     from ddgan_torch.cli import test_cli
@@ -3968,7 +4012,9 @@ def toy_image_wh(rng, w: int, h: int) -> np.ndarray:
 
 
 # phase 48's JPEG codings: (coding, files of CUSTOM_IMAGES)
-CUSTOM_KINDS = {"baseline": 32, "progressive": 16, "arithmetic": 8, "arithmetic progressive": 8}
+CUSTOM_KINDS = {"baseline": 24, "progressive": 16, "arithmetic": 8, "arithmetic progressive": 8,
+                "4:4:0": 4, "h4v1": 4}
+CUSTOM_SAMPLINGS = {"4:4:0": [(1, 2), (1, 1), (1, 1)], "h4v1": [(4, 1), (1, 1), (1, 1)]}
 
 
 def write_custom_jpegs(Image, data_dir: Path, n: int, w: int, h: int, seed: int,
@@ -3977,9 +4023,13 @@ def write_custom_jpegs(Image, data_dir: Path, n: int, w: int, h: int, seed: int,
     w x h written at q95 as `tools/quality_soak256.py:61` writes them, file
     i in the coding kinds[i] (baseline if None: PIL's; progressive: PIL's
     scan script; arithmetic, sequential or progressive: PIL's baseline file
-    re-encoded by the tests' `_torch_jpeg_arith`). Returns the seconds it
-    took."""
+    re-encoded by the tests' `_torch_jpeg_arith`; 4:4:0 or h4v1, true
+    4:1:1: coded at those samplings by the tests' `_torch_imagewriters`
+    with PIL's q95 tables, as PIL cannot write them). Returns the seconds
+    it took."""
     arith = tests_helper("_torch_jpeg_arith") if kinds else None
+    writers = tests_helper("_torch_imagewriters") if kinds else None
+    tables = writers.jpeg_tables(Image, 95) if kinds else None
     t0 = time.perf_counter()
     folder = data_dir / "train" / "imgs"
     folder.mkdir(parents=True, exist_ok=True)
@@ -3987,6 +4037,10 @@ def write_custom_jpegs(Image, data_dir: Path, n: int, w: int, h: int, seed: int,
         rng = np.random.RandomState(seed * 7_000_003 + i)
         arr = (toy_image_wh(rng, w, h) * 255).astype(np.uint8)
         kind = kinds[i] if kinds else "baseline"
+        if kind in CUSTOM_SAMPLINGS:
+            data = writers.jpeg_encode(arr, CUSTOM_SAMPLINGS[kind], tables)
+            (folder / f"img_{i:05d}.jpg").write_bytes(data)
+            continue
         buf = io.BytesIO()
         Image.fromarray(arr).save(buf, "JPEG", quality=95, progressive=kind == "progressive")
         data = buf.getvalue()
@@ -4052,13 +4106,14 @@ def loader_seconds(loader, epoch: int, n: int) -> tuple[list, list]:
 
 def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict) -> dict:
     """The CelebA-HQ 256 recipe on `custom` through `main_cli` (phase 28's
-    run and checks, with --data_dir): 64 seeded 320 x 288 JPEGs (32
+    run and checks, with --data_dir): 64 seeded 320 x 288 JPEGs (24
     baseline, 16 progressive, 8 arithmetic-coded sequential and 8
-    progressive, batch 0 holding one of each: a set that covers the
-    codings, not a mix users are known to send), do_resize (284 x 256),
-    ToTensor, Normalize and CenterCrop (256²); then the loop's loader
-    alone: batch 0 of epoch 0 against the same files decoded by PIL
-    through the JAX package's transform arithmetic (<= 1e-6), and seconds
+    progressive, 4 at 4:4:0 and 4 at h4v1, batches 0 and 1 holding one of
+    each: a set that covers the codings, not a mix users are known to
+    send), do_resize (284 x 256), ToTensor, Normalize and CenterCrop
+    (256²); then the loop's loader alone: batches 0 and 1 of epoch 0
+    against the same files decoded by PIL through the JAX package's
+    transform arithmetic (<= 1e-6), and seconds
     per batch over an epoch, on that set and on the same 64 images all
     baseline (the files PIL and cameras write most)."""
     from ddgan_torch.data import make_dataset
@@ -4070,12 +4125,12 @@ def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict)
                            to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes",
                            exp="celeba256_custom", batch_size=TRAIN_BATCH_256,
                            limited_iter=CUSTOM_ITERS, num_epoch=1, save_ckpt_every=1)
-        # batch 0's indices depend on the file count only: draw the codings so
-        # that it holds one file of each
+        # batches 0 and 1's indices depend on the file count only: draw the
+        # codings so that they hold one file of each
         write_custom_jpegs(Image, data, CUSTOM_IMAGES, 8, 8, seed=48)
         probe = build_loader(cfg, make_dataset(cfg), cfg.batch_size)
         probe.set_epoch(0)
-        kinds = custom_kinds([int(i) for i in probe._indices()[:cfg.batch_size]],
+        kinds = custom_kinds([int(i) for i in probe._indices()[:2 * cfg.batch_size]],
                              CUSTOM_IMAGES, seed=48)
         write_s = write_custom_jpegs(Image, data, CUSTOM_IMAGES, CUSTOM_W, CUSTOM_H, seed=48,
                                      kinds=kinds)
@@ -4086,9 +4141,9 @@ def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict)
         ds = make_dataset(cfg)
         loader = build_loader(cfg, ds, cfg.batch_size)
         loader.set_epoch(0)
-        first = [ds.images_all[i] for i in loader._indices()[:cfg.batch_size]]
-        first_kinds = [kinds[int(i)] for i in loader._indices()[:cfg.batch_size]]
-        check(sorted(first_kinds) == sorted(CUSTOM_KINDS), f"batch 0 holds {first_kinds}")
+        first = [ds.images_all[i] for i in loader._indices()[:2 * cfg.batch_size]]
+        first_kinds = [kinds[int(i)] for i in loader._indices()[:2 * cfg.batch_size]]
+        check(set(first_kinds) == set(CUSTOM_KINDS), f"batches 0 and 1 hold {first_kinds}")
         times, images = loader_seconds(loader, 0, len(loader))
         base = Path(data_tmp) / "baseline"
         write_custom_jpegs(Image, base, CUSTOM_IMAGES, CUSTOM_W, CUSTOM_H, seed=48)
@@ -4096,14 +4151,15 @@ def custom_run(Image, cfg2, bare: dict, fir2x, pair_conv, sample_launches: dict)
         base_times, _ = loader_seconds(build_loader(base_cfg, make_dataset(base_cfg),
                                                     cfg.batch_size), 0, len(loader))
         want = pil_reference_items(Image, first, cfg.image_size)
-        err = float(np.abs(images[0] - want).max())
-        check(images[0].shape == (cfg.batch_size, cfg.image_size, cfg.image_size, 3)
+        got = np.concatenate(images[:2])
+        err = float(np.abs(got - want).max())
+        check(got.shape == (2 * cfg.batch_size, cfg.image_size, cfg.image_size, 3)
               and err <= 1e-6,
-              f"custom batch 0 {images[0].shape} against PIL and the JAX transforms: {err}")
+              f"custom batches 0-1 {got.shape} against PIL and the JAX transforms: {err}")
     s_per_batch, base_s = float(np.mean(times)), float(np.mean(base_times))
     bare_ms = run["bare_after"]["plain_step"]
     print(f"custom at 256²: {CUSTOM_IMAGES} JPEGs ({CUSTOM_KINDS}) written in {write_s:.2f} s; "
-          f"batch 0 ({first_kinds}) against "
+          f"batches 0-1 ({first_kinds}) against "
           f"PIL + the JAX transforms max-abs {err!r}; loader (decode, resize to 284x256, "
           f"ToTensor, Normalize, crop; {len(times)} batches of {cfg.batch_size}, one thread) "
           f"beside the bare bf16 step {bare_ms:.1f} ms: all baseline {1e3 * base_s:.1f} ms a "
@@ -4845,12 +4901,19 @@ def image_formats_against_pil(Image, smi: str) -> dict:
     (`tests/_torch_imagewriters.py`, loaded by path with
     `tests/_torch_jpeg_arith.py`: PNG at every colour type and depth, Adam7
     or not; BMP; PBM/PGM/PPM; TIFF; progressive, arithmetic-coded, CMYK,
-    YCCK and RGB-coded JPEG; files PIL writes among them) bit for bit (no
-    case has a bound); every malformed file raising ValueError, every
-    layout still refused raising NotImplementedError naming item 13i; then
-    ms per 256² image, the port's and PIL's, in turns on this host's clock:
-    a q95 4:2:0 JPEG baseline, progressive and arithmetic-coded (the same
-    coefficients), an LZW TIFF, a 24-bit BMP and a 16-bit PNG of one image."""
+    YCCK and RGB-coded JPEG; CCITT, JPEG-in-TIFF, LZMA, BigTIFF, float,
+    signed and fill order 2 TIFF; JPEG at 4:4:0, 4:1:1 and the other
+    sampling layouts PIL cannot write; lossless JPEG at every predictor;
+    files PIL writes among them) bit for
+    bit (no case has a bound); the layouts the tests once listed as
+    refused, now read, the same; every malformed file raising ValueError,
+    every layout still refused raising NotImplementedError naming item
+    13i; then ms per image, the port's and PIL's, in turns on this host's
+    clock: at 256², a q95 4:2:0 JPEG baseline, progressive and
+    arithmetic-coded (the same coefficients), an LZW TIFF, a 24-bit BMP, a
+    16-bit PNG, a YCbCr 4:2:0 JPEG-in-TIFF, a float TIFF (Deflate,
+    predictor 3) and a 4:4:0 JPEG of one image; and a 1728x2200 CCITT
+    Group 4 page."""
     import PIL
     from PIL import features
 
@@ -4862,7 +4925,12 @@ def image_formats_against_pil(Image, smi: str) -> dict:
     t0 = time.perf_counter()
     files = (writers.png_matrix(Image) + writers.bmp_matrix(Image)
              + writers.netpbm_matrix(Image) + writers.tiff_matrix(Image)
-             + writers.jpeg_matrix(Image, arith))
+             + writers.jpeg_matrix(Image, arith)
+             # the newer matrices at fewer sizes than the tests take (sizes not a
+             # multiple of a strip, tile or MCU kept): depth, for the time limit
+             + writers.tiff_more_matrix(Image, sizes=[(7, 9), (37, 45)])
+             + writers.jpeg_sampling_matrix(Image, arith, sizes=[(7, 9), (37, 45)])
+             + writers.jpeg_lossless_matrix(Image) + list(writers.once_refused(Image).items()))
     write_s = time.perf_counter() - t0
     bad, by_format = [], {}
     for label, data in files:
@@ -4891,6 +4959,8 @@ def image_formats_against_pil(Image, smi: str) -> dict:
     rs = np.random.RandomState(56)
     arr = smooth_field(rs, 256, 256, 3)
     baseline = pil_jpeg(Image, np.random.RandomState(48), 256, 256, "4:2:0", quality=95)
+    tables = writers.jpeg_tables(Image, 95)
+    page = writers.bilevel(np.random.RandomState(56), 2200, 1728, "sparse blocks")
     timed = {
         "jpeg baseline": baseline,
         "jpeg progressive": writers.pil_jpeg(Image, np.random.RandomState(48), 256, 256, "4:2:0",
@@ -4899,6 +4969,15 @@ def image_formats_against_pil(Image, smi: str) -> dict:
         "tiff LZW": writers.tiff(arr, photometric=2, compression=5),
         "bmp 24-bit": writers.bmp(arr, 24),
         "png 16-bit": writers.png(arr.astype(np.uint16) * 257, 2, 16),
+        "tiff JPEG YCbCr 4:2:0": writers.jpeg_tiff(arr, 6, [(2, 2), (1, 1), (1, 1)], tables,
+                                                   rows_per_strip=16),
+        "tiff float predictor 3": writers.tiff(arr[:, :, :1].astype(np.float32) * 1.5 - 60,
+                                               photometric=1, bits=32, sample_format=3,
+                                               compression=8, predictor=3),
+        "jpeg 4:4:0": writers.jpeg_encode(arr, [(1, 2), (1, 1), (1, 1)], tables),
+        "tiff CCITT T.6 1728x2200 page": writers.pil_tiff(
+            Image, Image.fromarray(page.astype(np.uint8) * 255).convert("1"),
+            compression="group4"),
     }
     fns = {}
     for name, data in timed.items():
@@ -4908,13 +4987,15 @@ def image_formats_against_pil(Image, smi: str) -> dict:
     ms = {name: {"port": ms[f"{name} port"], "pil": ms[f"{name} pil"], "bytes": len(d)}
           for name, d in timed.items()}
     print(f"image formats: {len(files)} files bit for bit against PIL ({by_format}; written in "
-          f"{write_s:.1f} s), {len(writers.broken(Image))} malformed files refused with "
-          f"ValueError, {len(writers.refused(Image))} layouts refused naming item 13i")
-    print(f"ms a 256² image on this host ({smi}): " + "; ".join(
+          f"{write_s:.1f} s), {len(writers.once_refused(Image))} of them once refused, "
+          f"{len(writers.broken(Image))} malformed files refused with ValueError, "
+          f"{len(writers.refused(Image))} layouts refused naming item 13i")
+    print(f"ms an image (256² but the page) on this host ({smi}): " + "; ".join(
         f"{k} {v['port']:.3f} (port) / {v['pil']:.3f} (PIL)" for k, v in ms.items()))
     return {"pil": PIL.__version__, "pil_libjpeg": features.version("jpg"),
             "pil_libtiff": features.version("libtiff"), "files": len(files), "exact": len(files),
-            "by_format": by_format, "malformed_refused": len(writers.broken(Image)),
+            "by_format": by_format, "once_refused_read": len(writers.once_refused(Image)),
+            "malformed_refused": len(writers.broken(Image)),
             "refused_13i": len(writers.refused(Image)), "write_s": write_s, "ms_256": ms}
 
 
@@ -5612,7 +5693,8 @@ def main() -> int:
           f"{100 * lmdb_runs['lsun256']['loader_share_of_bare_step']:.1f}%")
     torch.cuda.empty_cache()
 
-    phase("56 BMP, PBM/PGM/PPM, TIFF, progressive and arithmetic JPEG, PNG at every depth "
+    phase("56 BMP, PBM/PGM/PPM, TIFF (CCITT, JPEG, LZMA, BigTIFF, float and signed samples "
+          "among them), progressive, arithmetic and 4:4:0 / 4:1:1 JPEG, PNG at every depth "
           "against PIL on this host: the tests' matrices, malformed and refused files, ms an "
           "image")
     image_files["formats"] = image_formats_against_pil(Image, smi)

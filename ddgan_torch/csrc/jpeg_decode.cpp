@@ -16,11 +16,24 @@
 //     transform 0, or component IDs 'R', 'G', 'B', as jdapimin.c decides),
 //     which take no colour transform; 4 in CMYK or YCCK (Adobe transform
 //     0 or 2), returned inverted as PIL's "CMYK;I" raw mode returns them;
-//     each component at the largest sampling or at half of it across, or
-//     across and down (4:4:4, 4:2:2, 4:2:0);
-//   * any width and height, multiples of the MCU or not.
-// Lossless (SOF3), hierarchical (SOF5-7, SOF13-15) and 12-bit files, other
-// component counts and sampling layouts, and a progressive file whose scans
+//     or, as libtiff asks for a JPEG-in-TIFF strip, its components as they
+//     are (JCS_UNKNOWN) or YCbCr converted to RGB whatever the markers say;
+//   * each component at any integral fraction of the largest sampling
+//     across and down, as jdsample.c upsamples it: 4:4:4, 4:2:2, 4:2:0,
+//     4:4:0 (h1v2), true 4:1:1 (h4v1), 4:1:0, 3x1 and the rest;
+//   * any width and height, multiples of the MCU or not;
+//   * lossless files (SOF3, Huffman-coded) at 8 bits with every component
+//     at 1x1: predictors 1-7, any point transform, restart intervals of
+//     whole rows, as jdlhuff.c, jdpred.c and jdlossls.c decode them (each
+//     scan's first row, and the first after each restart, predicted from
+//     the left, its first sample from 2^(7 - Pt); the samples shifted back
+//     left by Pt into 8 bits); with no colour conversion, which
+//     libjpeg-turbo refuses in lossless mode (a JFIF or YCbCr Adobe marker
+//     on three components is refused here too).
+// Arithmetic-coded lossless (SOF11), hierarchical (SOF5-7, SOF13-15) and
+// 12-bit files, subsampled lossless components, other
+// component counts, non-integral sampling ratios (libjpeg refuses them
+// too), and a progressive file whose scans
 // leave one of its first ten coefficients short of bit 0 (libjpeg-turbo
 // smooths such blocks, jdcoefct.c decompress_smooth_data) are refused
 // (return code 1); malformed files return 2.
@@ -36,7 +49,10 @@
 //   * jdsample.c's h2v1 / h2v2 fancy upsampling (the triangle filter with
 //     its alternating rounding bias, the first and last sample rows
 //     replicated at the component's real height), used when the
-//     component's width is above 2 samples; otherwise box replication.
+//     component's width is above 2 samples, otherwise box replication;
+//     h1v2_fancy_upsample (3/4 of the nearer row and 1/4 of the further,
+//     biases 1 and 2) at any width; int_upsample's box replication for
+//     every other integral ratio.
 //   * jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16), and its YCCK -> CMYK
 //     (255 minus the RGB of Y, Cb, Cr, clamped; K as it is).
 //
@@ -52,6 +68,11 @@ namespace {
 
 constexpr int kUnsupported = 1;
 constexpr int kMalformed = 2;
+// the colour space: as the file's markers say (jdapimin.c), the components
+// as they are (JCS_UNKNOWN), YCbCr to RGB (libtiff's JPEGCOLORMODE_RGB), or
+// the components as they are, each replicated to full size (libjpeg's raw
+// data, as libtiff's old-style JPEG codec hands it to TIFFRGBAImage)
+constexpr int kAsFile = 0, kRaw = 1, kYCbCr = 2, kBox = 3;
 
 struct Failure {
     int code;
@@ -125,7 +146,7 @@ struct Decoder {
 
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
     int mcux = 0, mcuy = 0;
-    bool progressive = false, arithmetic = false;
+    bool progressive = false, arithmetic = false, lossless = false;
     Component comp[4];
     bool frame = false;
 
@@ -220,7 +241,8 @@ struct Decoder {
         height = u16();
         width = u16();
         ncomp = byte();
-        if (marker == 0xC3 || marker == 0xCB) unsupported("a lossless JPEG");
+        if (marker == 0xCB) unsupported("an arithmetic-coded lossless JPEG");
+        lossless = marker == 0xC3;
         if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
             unsupported("a hierarchical JPEG");
         progressive = marker == 0xC2 || marker == 0xCA;
@@ -243,6 +265,8 @@ struct Decoder {
             hmax = c.h > hmax ? c.h : hmax;
             vmax = c.v > vmax ? c.v : vmax;
         }
+        if (lossless && (hmax != 1 || vmax != 1))
+            unsupported("a lossless JPEG with subsampled components");
         mcux = (width + 8 * hmax - 1) / (8 * hmax);
         mcuy = (height + 8 * vmax - 1) / (8 * vmax);
         for (int i = 0; i < ncomp; ++i) {
@@ -839,11 +863,20 @@ struct Decoder {
             c.dc_table = tables >> 4;
             c.ac_table = tables & 15;
         }
+        if (ns > 1) {  // jdinput.c per_scan_setup: D_MAX_BLOCKS_IN_MCU
+            int blocks = 0;
+            for (int i = 0; i < ns; ++i) blocks += comp[scan_idx[i]].h * comp[scan_idx[i]].v;
+            if (blocks > 10) malformed("sampling factors too large for an interleaved scan");
+        }
         ss = byte();
         se = byte();
         int ahal = byte();
         ah = ahal >> 4;
         al = ahal & 15;
+        if (lossless) {
+            lossless_scan(ns);
+            return;
+        }
         if (progressive) {
             // jdphuff.c / jdarith.c start_pass: a legal progression step
             bool bad = false;
@@ -911,10 +944,87 @@ struct Decoder {
             unread_marker = 0;
             return;
         }
-        // drop the rest of the entropy-coded segment up to the next marker
+        skip_to_marker();  // drop the rest of the entropy-coded segment
+    }
+
+    // the rest of the entropy-coded segment, up to the next marker
+    void skip_to_marker() {
         while (pos + 1 < size && !(data[pos] == 0xFF && data[pos + 1] != 0x00 &&
                                    !(data[pos + 1] >= 0xD0 && data[pos + 1] <= 0xD7)))
             ++pos;
+    }
+
+    // a lossless scan (jdlhuff.c decode_mcus, jdpred.c, jdlossls.c): each
+    // row's differences (SSSS 16 is 32768 with no bits), undifferenced
+    // modulo 2^16 against predictor Ss, shifted left by Al into 8 bits
+    void lossless_scan(int ns) {
+        if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= 8)
+            malformed("bad lossless scan parameters");
+        for (int i = 0; i < ns; ++i) {
+            Component& c = comp[scan_idx[i]];
+            if (c.dc_table > 3 || !dc[c.dc_table].defined)
+                malformed("a scan uses an undefined Huffman table");
+            c.seen = true;
+        }
+        if (restart_interval % width != 0)  // jdpred.c predict_start_pass
+            malformed("a lossless restart interval that is not a whole number of rows");
+        reset_scan_state();
+        std::vector<std::vector<int32_t>> diff(ns, std::vector<int32_t>(width));
+        std::vector<std::vector<int32_t>> cur(ns, std::vector<int32_t>(width));
+        std::vector<std::vector<int32_t>> prev(ns, std::vector<int32_t>(width));
+        const int initial = 1 << (7 - al);
+        const int rows_between = restart_interval / width;
+        int togo = rows_between;
+        bool first = true;
+        for (int y = 0; y < height; ++y) {
+            if (rows_between) {
+                if (togo == 0) {
+                    restart();
+                    togo = rows_between;
+                    first = true;
+                }
+                --togo;
+            }
+            for (int x = 0; x < width; ++x)
+                for (int i = 0; i < ns; ++i) {
+                    int s = decode(dc[comp[scan_idx[i]].dc_table]);
+                    if (s > 16) malformed("a lossless difference of more than 16 bits");
+                    diff[i][x] = s == 16 ? 32768 : (s ? extend(get_bits(s), s) : 0);
+                }
+            for (int i = 0; i < ns; ++i) {
+                const int32_t* d = diff[i].data();
+                const int32_t* up = prev[i].data();
+                int32_t* o = cur[i].data();
+                if (first) {  // UNDIFFERENCE_1D(INITIAL_PREDICTOR)
+                    int ra = (d[0] + initial) & 0xFFFF;
+                    o[0] = ra;
+                    for (int x = 1; x < width; ++x) o[x] = ra = (d[x] + ra) & 0xFFFF;
+                } else {  // UNDIFFERENCE_2D(PREDICTORn), the first column from above
+                    int ra = (d[0] + up[0]) & 0xFFFF;
+                    o[0] = ra;
+                    for (int x = 1; x < width; ++x) {
+                        const int rb = up[x], rc = up[x - 1];
+                        int p;
+                        switch (ss) {
+                            case 1: p = ra; break;
+                            case 2: p = rb; break;
+                            case 3: p = rc; break;
+                            case 4: p = ra + rb - rc; break;
+                            case 5: p = ra + ((rb - rc) >> 1); break;
+                            case 6: p = rb + ((ra - rc) >> 1); break;
+                            default: p = (ra + rb) >> 1; break;
+                        }
+                        o[x] = ra = (d[x] + p) & 0xFFFF;
+                    }
+                }
+                Component& c = comp[scan_idx[i]];
+                uint8_t* row = c.plane.data() + static_cast<size_t>(y) * c.blocks_w * 8;
+                for (int x = 0; x < width; ++x) row[x] = static_cast<uint8_t>(o[x] << al);
+                std::swap(cur[i], prev[i]);
+            }
+            first = false;
+        }
+        skip_to_marker();
     }
 
     // the headers, then (unless headers_only) every scan
@@ -998,14 +1108,24 @@ struct Decoder {
 
     bool ycck() const { return saw_adobe && adobe_transform != 0; }
 
+    int colour = kAsFile;
+
+    // jdsample.c jinit_upsampler: integral ratios only
     void check_colour_space() const {
         for (int i = 0; i < ncomp; ++i) {
             const Component& c = comp[i];
-            const bool full = c.h == hmax && c.v == vmax;
-            const bool half = 2 * c.h == hmax && (c.v == vmax || 2 * c.v == vmax);
-            if (!full && !half)
-                unsupported("a sampling layout other than 4:4:4, 4:2:2 or 4:2:0");
+            if (hmax % c.h != 0 || vmax % c.v != 0)
+                unsupported("a sampling layout of non-integral ratios (libjpeg refuses it too)");
         }
+        if (colour == kYCbCr && ncomp != 3)
+            malformed("YCbCr asked of a JPEG of " + std::to_string(ncomp) + " components");
+        // jdmaster.c: no colour conversion in lossless mode
+        if (lossless && colour == kAsFile &&
+            ((ncomp == 3 && (saw_jfif || (saw_adobe && adobe_transform != 0))) ||
+             (ncomp == 4 && ycck())))
+            unsupported("a lossless JPEG whose markers ask for a colour conversion "
+                        "(libjpeg-turbo refuses it)");
+        if (lossless && colour == kYCbCr) malformed("YCbCr asked of a lossless JPEG");
     }
 
     // ------------------------------------------------- upsample and colour
@@ -1019,8 +1139,31 @@ struct Decoder {
                 std::memcpy(&out[static_cast<size_t>(y) * width], p + y * stride, width);
             return out;
         }
-        const bool v1 = c.v == vmax, v2 = 2 * c.v == vmax;
         const int dw = c.width, dh = c.height;
+        if (colour != kBox && c.h == hmax && 2 * c.v == vmax) {  // h1v2_fancy_upsample
+            for (int y = 0; y < height; ++y) {
+                int i = y / 2;
+                int nb = (y & 1) ? (i + 1 < dh ? i + 1 : dh - 1) : (i > 0 ? i - 1 : 0);
+                const uint8_t* in0 = p + i * stride;
+                const uint8_t* in1 = p + nb * stride;
+                const int bias = (y & 1) ? 2 : 1;
+                uint8_t* dst = &out[static_cast<size_t>(y) * width];
+                for (int x = 0; x < width; ++x)
+                    dst[x] = static_cast<uint8_t>((in0[x] * 3 + in1[x] + bias) >> 2);
+            }
+            return out;
+        }
+        // int_upsample: box replication
+        if (colour == kBox || hmax != 2 * c.h || (c.v != vmax && vmax != 2 * c.v)) {
+            const int he = hmax / c.h, ve = vmax / c.v;
+            for (int y = 0; y < height; ++y) {
+                const uint8_t* in = p + (y / ve) * stride;
+                uint8_t* dst = &out[static_cast<size_t>(y) * width];
+                for (int x = 0; x < width; ++x) dst[x] = in[x / he];
+            }
+            return out;
+        }
+        const bool v1 = c.v == vmax, v2 = 2 * c.v == vmax;
         std::vector<int> row(2 * dw);
         std::vector<int> colsum(dw);
         for (int y = 0; y < height; ++y) {
@@ -1066,7 +1209,13 @@ struct Decoder {
                              p2 = full_size(comp[2]);
         std::vector<uint8_t> p3 = ncomp == 4 ? full_size(comp[3]) : std::vector<uint8_t>();
         const size_t n = static_cast<size_t>(width) * height;
-        if (ncomp == 3 && rgb_coded()) {  // no colour transform
+        if (colour == kRaw || colour == kBox) {  // JCS_UNKNOWN: the components as they are
+            const std::vector<uint8_t>* planes[4] = {&p0, &p1, &p2, &p3};
+            for (size_t i = 0; i < n; ++i)
+                for (int k = 0; k < ncomp; ++k) out[ncomp * i + k] = (*planes[k])[i];
+            return;
+        }
+        if (ncomp == 3 && colour == kAsFile && (lossless || rgb_coded())) {  // no transform
             for (size_t i = 0; i < n; ++i) {
                 out[3 * i] = p0[i];
                 out[3 * i + 1] = p1[i];
@@ -1123,17 +1272,22 @@ void set_error(char* err, size_t cap, const std::string& what) {
 
 extern "C" {
 
-// Decode the JPEG in data[0:size]. dims[0..2] receive height, width and
-// channels (1 grey, 3 RGB, 4 CMYK as PIL's "CMYK" mode holds it). With
+// Decode the JPEG in data[0:size] in colour space `colour` (0 as the file
+// says, 1 its components as they are, 2 YCbCr to RGB, 3 the components as
+// they are, box-replicated to full size). dims[0..2] receive
+// height, width and channels (1 grey, 3 RGB, 4 CMYK as PIL's "CMYK" mode
+// holds it). With
 // out == NULL only the headers up to the frame header are read and the
 // call returns 3 (sizes known, nothing written); otherwise out must hold
 // height*width*channels bytes, and the call returns 0 when the pixels are
 // written (row-major, channels last). A file it does not read returns 1,
 // a malformed file 2 (or an out_cap too small); err receives a message.
 int ddgan_jpeg_decode(const uint8_t* data, size_t size, uint8_t* out, size_t out_cap,
-                      int64_t* dims, char* err, size_t err_cap) {
+                      int64_t* dims, int colour, char* err, size_t err_cap) {
     try {
+        if (colour < kAsFile || colour > kBox) malformed("an unknown colour space");
         Decoder d(data, size);
+        d.colour = colour;
         d.parse(out == nullptr);
         dims[0] = d.height;
         dims[1] = d.width;

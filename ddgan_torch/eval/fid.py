@@ -35,9 +35,13 @@ def list_image_files(path: str | pathlib.Path) -> list[pathlib.Path]:
 
 def _load_images_01(paths: Sequence, resize: int = 0) -> list[np.ndarray]:
     """(H, W, 3) float32 in [0, 1] of each image file, decoded together
-    (`decode_images`: PNG, JPEG, WebP, BMP, PBM/PGM/PPM and TIFF; what they
-    do not read raises NotImplementedError naming ROADMAP.md Queue 1 item
-    13i), each resized to resize² with PIL's
+    (`decode_images`: PNG at every depth; JPEG baseline, progressive,
+    arithmetic-coded or lossless at any integral sampling; WebP; BMP;
+    PBM/PGM/PPM; TIFF classic or BigTIFF, uncompressed, LZW, Deflate,
+    PackBits, LZMA, CCITT, JPEG or old-style JPEG, with integer, float,
+    YCbCr or CIELAB samples; what they do not read, such as Zstd TIFF or
+    uncompressed YCbCr, raises NotImplementedError naming ROADMAP.md Queue
+    1 item 13i), each resized to resize² with PIL's
     bilinear first when resize > 0 (`ddgan_tpu/eval/fid.py:31-37`)."""
     datas = []
     for path in paths:

@@ -65,9 +65,11 @@ _ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), 
 
 def _not_decodable(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: ddgan_torch reads PNG, JPEG (baseline, progressive, arithmetic-coded), "
-        "WebP, BMP, PBM/PGM/PPM and TIFF files in the layouts PIL reads, except those "
-        "ROADMAP.md Queue 1 item 13i lists; this one needs an image decoder (item 13i)."
+        f"{what}: ddgan_torch reads PNG, JPEG (baseline, progressive, arithmetic-coded, at "
+        "any integral sampling), WebP, BMP, PBM/PGM/PPM and TIFF (classic and BigTIFF; "
+        "uncompressed, LZW, Deflate, PackBits, LZMA, CCITT and JPEG; integer and float "
+        "samples) files in the layouts PIL reads, except those ROADMAP.md Queue 1 item 13i "
+        "lists; this one needs an image decoder (item 13i)."
     )
 
 
@@ -179,6 +181,8 @@ def unpack_bits(rows: np.ndarray, n: int, bits: int) -> np.ndarray:
     (H, row bytes) uint8 rows, packed MSB first as PNG, BMP, PBM and TIFF
     pack 1-, 2- and 4-bit samples."""
     h = rows.shape[0]
+    if bits == 1:
+        return np.unpackbits(rows, axis=1, count=n)
     b = np.unpackbits(rows, axis=1)[:, :n * bits].reshape(h, n, bits)
     weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
     return (b * weights).sum(axis=2, dtype=np.uint8)
@@ -302,17 +306,30 @@ def image_format(data: bytes) -> str | None:
 def to_rgb(pixels: np.ndarray, mode: str) -> np.ndarray:
     """(H, W, 3) uint8 of a decoder's pixels in PIL's `mode`, as PIL's
     `convert("RGB")` gives them: "L" (and "1" as 0/255) replicated, "I"
-    (and "I;16") clipped to 0-255 and replicated, "RGBA" without its alpha,
-    "CMYK" by Pillow's Convert.c cmyk2rgb (255 - K - C(255 - K)/255, the
-    product rounded as its MULDIV255)."""
+    (int32: "I;16", "I;16S", "I;32S", "I;32N" as PIL holds them) clipped to
+    0-255 and replicated, "F" (float32) as Pillow's Convert.c f2l (0 at or
+    below 0 and for NaN, 255 at or above 255, else truncated) and
+    replicated, "RGBA" without its alpha, "CMYK" by Pillow's Convert.c
+    cmyk2rgb (255 - K - C(255 - K)/255, the product rounded as its
+    MULDIV255), "LAB" (a and b signed) as LittleCMS's Lab to sRGB transform
+    gives it (`data.cielab`)."""
     if mode == "RGB":
         return np.ascontiguousarray(pixels)
     if mode == "RGBA":
         return np.ascontiguousarray(pixels[:, :, :3])
     if mode == "L":
-        return np.repeat(pixels[:, :, None], 3, axis=2)
+        return np.stack([pixels] * 3, axis=-1)
     if mode == "I":
         return np.repeat(np.clip(pixels, 0, 255).astype(np.uint8)[:, :, None], 3, axis=2)
+    if mode == "F":
+        v = np.asarray(pixels, np.float32)
+        with np.errstate(invalid="ignore"):
+            g = np.where(v >= 255, 255, np.where(v > 0, np.trunc(np.where(v > 0, v, 0)), 0))
+        return np.repeat(g.astype(np.uint8)[:, :, None], 3, axis=2)
+    if mode == "LAB":
+        from .data.cielab import lab_to_rgb
+
+        return lab_to_rgb(pixels)
     if mode == "CMYK":
         nk = 255 - pixels[:, :, 3:].astype(np.int32)
         t = pixels[:, :, :3].astype(np.int32) * nk + 128

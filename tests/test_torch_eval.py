@@ -133,8 +133,9 @@ def test_decode_png_refuses_what_it_does_not_read(tmp_path):
         decode_png(good[:40] + bytes([good[40] ^ 1]) + good[41:])
     # the FID loader: a format and layouts the port does not read
     refused = W.refused(Image)
-    for name, data in (("a.gif", refused["gif"]), ("b.tif", refused["tiff JPEG (compression 7)"]),
-                       ("c.jpg", refused["jpeg lossless (SOF3)"])):
+    for name, data in (("a.gif", refused["gif"]),
+                       ("b.tif", refused["tiff Zstd (compression 50000)"]),
+                       ("c.jpg", refused["jpeg arithmetic-coded lossless (SOF11)"])):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(NotImplementedError, match="item 13i"):
             fid.get_activations([tmp_path / name], lambda b: b.mean((1, 2)), dims=3)
@@ -329,6 +330,24 @@ def test_fid_loader_reads_webp_files_as_the_jax_package_does(tmp_path, resize):
             im.save(tmp_path / f"{k}_{name}.webp", **save)
     files = fid.list_image_files(tmp_path)
     assert files == jfid.list_image_files(tmp_path) and len(files) == 12
+    got = fid._load_images_01(files, resize=resize)
+    for f, img in zip(files, got):
+        np.testing.assert_array_equal(img, jfid._load_image_01(f, resize=resize), str(f))
+
+
+@pytest.mark.parametrize("resize", [0, 16])
+def test_fid_loader_reads_more_tiff_and_jpeg_kinds_as_the_jax_package_does(tmp_path, resize):
+    """One file of each kind of `_torch_imagewriters.more_kinds` (CCITT in
+    every coding, JPEG-in-TIFF RGB and YCbCr 4:2:0, LZMA, BigTIFF, float
+    with predictor 3, signed 16- and 32-bit, fill order 2, YCbCr data units
+    under LZW, old-style JPEG, CIELAB, JPEG 4:4:0 and 4:1:1) in one
+    directory, through the port's FID reader and
+    `ddgan_tpu/eval/fid.py:_load_image_01`, exactly."""
+    kinds = W.more_kinds(Image)
+    for k, (name, (ext, data)) in enumerate(kinds.items()):
+        (tmp_path / f"{k:02d}_{name.replace(' ', '_').replace(':', '')}.{ext}").write_bytes(data)
+    files = fid.list_image_files(tmp_path)
+    assert files == jfid.list_image_files(tmp_path) and len(files) == len(kinds)
     got = fid._load_images_01(files, resize=resize)
     for f, img in zip(files, got):
         np.testing.assert_array_equal(img, jfid._load_image_01(f, resize=resize), str(f))

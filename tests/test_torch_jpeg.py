@@ -8,10 +8,17 @@ matrix of `tests/_torch_imagewriters.py:jpeg_matrix`: progressive files
 sequential and progressive, re-encoded from PIL's baseline files by
 `tests/_torch_jpeg_arith.py` (which PIL decodes to the baseline pixels);
 restart markers and DAC conditioning; CMYK, YCCK and RGB-coded files; the
-decoder's Qe table against libjpeg's `jpeg_aritab`. Files it does not
-read (lossless, hierarchical, 12-bit, progressive scans libjpeg would
-smooth) raise NotImplementedError naming ROADMAP.md Queue 1 item 13i;
-broken files raise ValueError.
+decoder's Qe table against libjpeg's `jpeg_aritab`. Then the sampling
+layouts PIL cannot write, coded by `_torch_imagewriters.jpeg_encode`:
+4:4:0, true 4:1:1, 4:1:0, 3x1, 1x3 and mixed chroma ratios (libjpeg's
+h1v2 fancy upsampling and its box replication), Huffman- and
+arithmetic-coded; and the colour spaces libtiff asks of a JPEG-in-TIFF
+strip; lossless files (SOF3) at every predictor and point transform,
+with restarts and a scan a component. Files it does not read
+(arithmetic-coded lossless, hierarchical, 12-bit, non-integral sampling
+ratios, progressive scans libjpeg would smooth) raise
+NotImplementedError naming ROADMAP.md Queue 1 item 13i; broken files
+raise ValueError.
 """
 
 import functools
@@ -111,6 +118,95 @@ def test_layouts_once_refused_equal_pil(what, make):
     buf = io.BytesIO()
     im.save(buf, "JPEG", quality=80, **save)
     _assert_pil(buf.getvalue())
+
+
+@functools.cache
+def _sampling_matrix() -> tuple:
+    return tuple(W.jpeg_sampling_matrix(Image, A))
+
+
+@pytest.mark.parametrize("layout", list(W.JPEG_SAMPLINGS))
+def test_sampling_layouts_equal_pil(layout):
+    """Each layout at sizes 1x1 to 64x80 and q80 / q95 (a size not a
+    multiple of the MCU replicates the component's last real row and
+    column, as jdsample.c's context rows do)."""
+    cases = [(label, d) for label, d in _sampling_matrix()
+             if label.startswith(f"jpeg sampling {layout} q")]
+    assert len(cases) == 2 * len(W.JPEG_SAMPLING_SIZES)
+    for label, data in cases:
+        np.testing.assert_array_equal(_assert_pil(data), decode_images([data])[0], err_msg=label)
+
+
+@pytest.mark.parametrize("layout", ["4:4:0", "4:1:1"])
+@pytest.mark.parametrize("kind", ["sequential", "progressive"])
+def test_arithmetic_sampling_layouts_equal_pil(layout, kind):
+    cases = [(label, d) for label, d in _sampling_matrix()
+             if label.startswith(f"jpeg sampling {layout} arithmetic {kind}")]
+    assert cases
+    for label, data in cases:
+        _assert_pil(data)
+
+
+@pytest.mark.parametrize("layout", ["4:2:0", "4:2:2", "4:4:4", "L"])
+def test_raw_colour_equals_pil_ycbcr_draft(tmp_path, layout):
+    """colour="raw" (libjpeg's JCS_UNKNOWN, as libtiff asks for an RGB or
+    grey JPEG-in-TIFF strip) gives the upsampled components unconverted:
+    what PIL gives when it drafts a YCbCr JPEG as "YCbCr"."""
+    data = _jpeg(tmp_path, layout, 21, 35, seed=3, quality=85)
+    im = Image.open(io.BytesIO(data))
+    if layout != "L":
+        im.draft("YCbCr", im.size)
+        assert im.mode == "YCbCr"
+    np.testing.assert_array_equal(decode_jpeg(data, colour="raw"), np.asarray(im))
+
+
+def test_ycbcr_colour_converts_whatever_the_markers_say(tmp_path):
+    """colour="ycbcr" (libtiff's JPEGCOLORMODE_RGB) converts a file that
+    would be taken as RGB-coded (an Adobe marker with transform 0) as the
+    same components under a JFIF marker are converted."""
+    data = _jpeg(tmp_path, "4:2:0", 19, 27, seed=4, quality=85)
+    assert data[2:4] == b"\xff\xe0"  # JFIF, which jdapimin.c reads before Adobe
+    rest = data[4 + int.from_bytes(data[4:6], "big"):]
+    adobe = data[:2] + b"\xff\xee\x00\x0eAdobe\x00\x64\x00\x00\x00\x00\x00" + rest
+    assert not np.array_equal(decode_jpeg(adobe), decode_jpeg(data))
+    np.testing.assert_array_equal(decode_jpeg(adobe, colour="ycbcr"), decode_jpeg(data))
+    with pytest.raises(ValueError, match="YCbCr asked of a JPEG of 1 components"):
+        decode_jpeg(_jpeg(tmp_path, "L", 8, 8, seed=5), colour="ycbcr")
+
+
+def test_more_than_ten_blocks_an_mcu_is_malformed():
+    """libjpeg's D_MAX_BLOCKS_IN_MCU: an interleaved scan of 2x2 + 2x2 +
+    2x2 blocks is refused by both decoders."""
+    data = W.jpeg_encode(smooth_field(np.random.RandomState(2), 16, 16, 3), [(2, 2)] * 3,
+                         W.jpeg_tables(Image, 80))
+    with pytest.raises(OSError):
+        np.asarray(Image.open(io.BytesIO(data)))
+    with pytest.raises(ValueError, match="sampling factors too large"):
+        decode_jpeg(data)
+
+
+@functools.cache
+def _lossless_matrix() -> tuple:
+    return tuple(W.jpeg_lossless_matrix(Image))
+
+
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_equals_pil(predictor):
+    """Each predictor at point transforms 0 and 2, grey and RGB, with
+    restarts and with a scan a component: libjpeg-turbo's undifferencing
+    modulo 2^16 and its shift back into 8 bits, and no colour conversion."""
+    cases = [(label, d) for label, d in _lossless_matrix()
+             if label.startswith(f"jpeg lossless predictor {predictor} ")]
+    assert len(cases) == 18
+    for label, data in cases:
+        _assert_pil(data)
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(decode_images([data])[0], want, err_msg=label)
+
+
+@pytest.mark.parametrize("what", [k for k in W.once_refused(Image) if k.startswith("jpeg")])
+def test_files_once_refused_equal_pil(what):
+    _assert_pil(W.once_refused(Image)[what])
 
 
 @pytest.mark.parametrize("what", [k for k in W.refused(Image) if k.startswith("jpeg")])

@@ -121,12 +121,14 @@ def test_library_layers_import_no_jax():
 
 def test_image_file_modules_import_no_pil_or_jax():
     """The image readers of the port, each alone: the resize, the JPEG,
-    WebP and TIFF decoders' bindings, the BMP and Netpbm readers, the
+    WebP and TIFF decoders' bindings, the CIELAB conversion, the BMP and
+    Netpbm readers, the
     volume cache, the host build helper, the datasets, the LMDB datasets
     and the FID loader (their JAX counterparts import PIL)."""
     mods = ["ddgan_torch.data.resize", "ddgan_torch.data.jpeg", "ddgan_torch.data.webp",
             "ddgan_torch.data.bmp", "ddgan_torch.data.netpbm", "ddgan_torch.data.tiff",
-            "ddgan_torch.data.slicecache", "ddgan_torch.ops._cxx", "ddgan_torch.utils",
+            "ddgan_torch.data.cielab", "ddgan_torch.data.slicecache", "ddgan_torch.ops._cxx",
+            "ddgan_torch.utils",
             "ddgan_torch.data.datasets", "ddgan_torch.data.lmdb_datasets",
             "ddgan_torch.data.factory", "ddgan_torch.eval.fid"]
     code = (
@@ -148,7 +150,8 @@ def test_image_file_modules_import_no_pil_or_jax():
     sources = {str(p.relative_to(ROOT)) for p in _port_sources()}
     assert {"ddgan_torch/data/resize.py", "ddgan_torch/data/jpeg.py", "ddgan_torch/data/webp.py",
             "ddgan_torch/data/bmp.py", "ddgan_torch/data/netpbm.py", "ddgan_torch/data/tiff.py",
-            "ddgan_torch/data/slicecache.py", "ddgan_torch/ops/_cxx.py"} <= sources
+            "ddgan_torch/data/slicecache.py", "ddgan_torch/ops/_cxx.py",
+            "ddgan_torch/data/cielab.py"} <= sources
 
 
 def test_jpeg_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
@@ -493,10 +496,11 @@ def test_chip_smoke_adam_ratio_bound_holds_and_is_reached(betas):
 def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
     """Phases 47-48's and 56's host code on the CPU: the JPEG matrix and the
     resize cases against this machine's PIL, the matrices of every other
-    format and coding, and the custom loader's batch 0 (baseline,
-    progressive and arithmetic-coded files) against the script's copy of
-    the JAX transform arithmetic, which must equal the JAX package's own
-    items; phase 48's codings put one of each kind in batch 0."""
+    format and coding (the layouts once refused among them), and the
+    custom loader's first batches (baseline, progressive, arithmetic-coded,
+    4:4:0 and h4v1 files) against the script's copy of the JAX transform
+    arithmetic, which must equal the JAX package's own items; phase 48's
+    codings put one of each kind in batches 0 and 1."""
     import numpy as np
     from PIL import Image
 
@@ -511,14 +515,16 @@ def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
     resize = cs.resize_against_pil(Image)
     assert resize["exact"] == resize["cases"] == 171
     formats = cs.image_formats_against_pil(Image, "this machine's CPU")
-    assert formats["exact"] == formats["files"] == 2148
-    assert formats["malformed_refused"] == 16 and formats["refused_13i"] == 14
-    kinds = cs.custom_kinds([40, 7, 0, 63], cs.CUSTOM_IMAGES, seed=0)
-    assert [kinds[i] for i in (40, 7, 0, 63)] == list(cs.CUSTOM_KINDS)
+    assert formats["exact"] == formats["files"] == 2812 and formats["once_refused_read"] == 8
+    assert formats["malformed_refused"] == 20 and formats["refused_13i"] == 15
+    assert sum(cs.CUSTOM_KINDS.values()) == cs.CUSTOM_IMAGES == 64
+    first = [40, 7, 0, 63, 12, 30, 5, 9]
+    kinds = cs.custom_kinds(first, cs.CUSTOM_IMAGES, seed=0)
+    assert [kinds[i] for i in first[:6]] == list(cs.CUSTOM_KINDS)
     assert {k: kinds.count(k) for k in cs.CUSTOM_KINDS} == cs.CUSTOM_KINDS
     cs.write_custom_jpegs(Image, tmp_path / "c", 6, 40, 36, seed=1,
                           kinds=["baseline", "progressive", "arithmetic",
-                                 "arithmetic progressive", "baseline", "progressive"])
+                                 "arithmetic progressive", "4:4:0", "h4v1"])
     kw = dict(dataset="custom", data_dir=str(tmp_path / "c"), mode="train", do_resize="yes",
               to_tensor_transform="yes", use_normalize="yes", CenterCrop="yes", image_size=32,
               num_channels=3, batch_size=3)

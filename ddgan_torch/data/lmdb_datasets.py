@@ -6,8 +6,8 @@ datasets_prep/lsun.py, torchvision's LSUN with a cached key list). It reads
 the LMDB files with `data/lmdb.py` instead of the `lmdb` package, and
 decodes encoded values with `utils.decode_images` instead of PIL: PNG,
 JPEG, WebP (the LSUN release's values, as its `data.py export` writes
-them), BMP, PBM/PGM/PPM and TIFF, converted to RGB as `.convert("RGB")`
-does. What they do not read raises NotImplementedError naming ROADMAP.md
+them), BMP, Netpbm, TIFF, GIF, ICO and TGA, converted to RGB as
+`.convert("RGB")` does. What they do not read raises NotImplementedError naming ROADMAP.md
 Queue 1 item 13i. Items
 are the uint8 (H, W, 3) arrays that the JAX package wraps in PIL images,
 through the same transform.

@@ -1,20 +1,25 @@
-"""PBM, PGM and PPM (Netpbm P1-P6) decoding, without PIL.
+"""Netpbm decoding (PBM, PGM, PPM, and the other magics Pillow opens),
+without PIL.
 
 `decode_netpbm(data)` gives `(pixels, mode)` as PIL's `PpmImagePlugin`
 opens the file: mode "L" (H, W) uint8 for PBM (1 = black, as 0, else 255)
 and for PGM with maxval <= 255; "I" (H, W) int32 for PGM with a larger
-maxval; "RGB" (H, W, 3) uint8 for PPM. A header is a magic number and
-whitespace-separated tokens, with `#` comments to the end of the line; the
-raw forms (P4-P6) start their samples after the one whitespace byte that
-ends the last token, the plain forms (P1-P3) hold decimal tokens (P1 one
-character each, whitespace optional) and may hold comments too. Samples
-are scaled as PIL scales them: maxval 255 as it is, P5 at maxval 65535 as
-the 16-bit values, any other maxval to round(v / maxval * M) (M 255, or
-65535 for mode "I"; Python's round, half to even), clipped at M.
-`utils.to_rgb` then converts as `convert("RGB")` does ("I" clipped at
-255). The other magics PIL opens (P0CMYK, Pf, Py*) raise
-NotImplementedError naming ROADMAP.md Queue 1 item 13i; a malformed or
-truncated file raises ValueError.
+maxval; "RGB" (H, W, 3) uint8 for PPM; "F" (H, W) float32 for `Pf` (the
+float map: rows bottom-up, little-endian under a negative scale, else
+big-endian; the scale must be finite and non-zero); "CMYK" (H, W, 4) for
+`P0CMYK` and `PyCMYK`, "RGBA" (H, W, 4) for `PyRGBA`, and for `PyP`, a "P"
+image without a palette, "RGB" zeros (PIL's lookup in its empty palette).
+A header is a magic number (up to six bytes, ended by whitespace, which a
+six-byte magic need not have) and whitespace-separated tokens, with `#`
+comments to the end of the line; the raw forms start their samples after
+the one whitespace byte that ends the last token, the plain forms (P1-P3)
+hold decimal tokens (P1 one character each, whitespace optional) and may
+hold comments too. Samples are scaled as PIL scales them: maxval 255 as it
+is, P5 at maxval 65535 as the 16-bit values, any other maxval to
+round(v / maxval * M) (M 255, or 65535 for mode "I"; Python's round, half
+to even), clipped at M. `utils.to_rgb` then converts as `convert("RGB")`
+does ("I" clipped at 255). A malformed or truncated file raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import numpy as np
 from ..utils import unpack_bits
 
 WHITESPACE = b" \t\n\x0b\x0c\r"
-MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB"}
+MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L", b"P6": "RGB",
+         b"P0CMYK": "CMYK", b"Pf": "F", b"PyP": "P", b"PyRGBA": "RGBA", b"PyCMYK": "CMYK"}
+BANDS = {"1": 1, "L": 1, "P": 1, "RGB": 3, "RGBA": 4, "CMYK": 4}
 _TOKEN_MAX = 10
 MAX_PIXELS = 1 << 28  # a header beyond this is taken as malformed
 
@@ -35,15 +42,12 @@ def _header(data: bytes) -> tuple[bytes, list, int]:
     while pos < len(data) and len(magic) < 6 and data[pos] not in WHITESPACE:
         magic += data[pos:pos + 1]
         pos += 1
-    pos += 1  # the whitespace byte that ends the magic
+    if len(magic) < 6:
+        pos += 1  # the whitespace byte that ends the magic
     if magic not in MODES:
-        if magic in (b"P0CMYK", b"Pf", b"PyP", b"PyRGBA", b"PyCMYK"):
-            raise NotImplementedError(
-                f"a {magic.decode()} Netpbm-style file: ddgan_torch reads P1-P6 only "
-                "(ROADMAP.md Queue 1 item 13i)")
         raise ValueError(f"not a Netpbm file (magic {magic!r})")
     tokens = []
-    for _ in range(2 if MODES[magic] == "1" else 3):
+    for k in range(2 if MODES[magic] == "1" else 3):
         token = b""
         while len(token) <= _TOKEN_MAX:
             if pos >= len(data):
@@ -63,7 +67,7 @@ def _header(data: bytes) -> tuple[bytes, list, int]:
         if not token or len(token) > _TOKEN_MAX:
             raise ValueError("a Netpbm header token is missing or too long")
         try:
-            tokens.append(int(token))
+            tokens.append(float(token) if k == 2 and magic == b"Pf" else int(token))
         except ValueError:
             raise ValueError(f"a Netpbm header token is not a number: {token!r}") from None
     return magic, tokens, pos
@@ -84,16 +88,24 @@ def _plain_tokens(body: bytes) -> bytes:
 
 
 def decode_netpbm(data: bytes) -> tuple[np.ndarray, str]:
-    """(pixels, mode) of a P1-P6 file, as PIL's `Image.open` gives them."""
+    """(pixels, mode) of a Netpbm file, as PIL's `Image.open` gives them."""
     data = bytes(data)
     magic, tokens, pos = _header(data)
     w, h = tokens[0], tokens[1]
     if w <= 0 or h <= 0 or w * h > MAX_PIXELS:
         raise ValueError(f"Netpbm image of {w}x{h} pixels")
     mode = MODES[magic]
-    bands = 3 if mode == "RGB" else 1
+    bands = BANDS.get(mode, 1)
     count = w * h * bands
     body = data[pos:]
+    if mode == "F":
+        scale = tokens[2]
+        if scale == 0.0 or not np.isfinite(scale):
+            raise ValueError("the Pf scale must be finite and non-zero")
+        if len(body) < 4 * count:
+            raise ValueError("the Netpbm file is truncated")
+        samples = np.frombuffer(body, "<f4" if scale < 0 else ">f4", count)
+        return samples.astype(np.float32).reshape(h, w)[::-1].copy(), "F"
     if mode == "1":
         if magic == b"P4":
             stride = (w + 7) // 8
@@ -137,5 +149,7 @@ def decode_netpbm(data: bytes) -> tuple[np.ndarray, str]:
         values = np.minimum(out_max, np.round(values / maxval * out_max)).astype(np.int64)
     if mode == "I":
         return values.reshape(h, w).astype(np.int32), "I"
+    if mode == "P":  # no palette: PIL looks every index up in an empty one
+        return np.zeros((h, w, 3), np.uint8), "RGB"
     pixels = values.astype(np.uint8)
-    return (pixels.reshape(h, w, 3), "RGB") if bands == 3 else (pixels.reshape(h, w), "L")
+    return (pixels.reshape(h, w, bands), mode) if bands > 1 else (pixels.reshape(h, w), "L")

@@ -14,6 +14,7 @@ float32 in both packages.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -60,24 +61,24 @@ def _folded_norm(x, mean, var, scale, shift, dt):
     ]
 
 
+def _style_bias_init(channels: int, bias: torch.Tensor) -> None:
+    """[1]*C + [0]*C: gamma starts at 1 and beta at 0."""
+    bias[:channels] = 1.0
+    bias[channels:] = 0.0
+
+
 class AdaptiveGroupNorm(nn.Module):
     """GroupNorm(affine=False) modulated by a style vector. (layerspp.py:46-63)
 
     style = Linear(zemb) → (gamma, beta), with the bias initialized so gamma
-    starts at 1 and beta at 0.
+    starts at 1 and beta at 0 (the JAX package's `style_bias_init`).
     """
 
     def __init__(self, num_groups: int, in_channel: int, style_dim: int, dtype=None):
         super().__init__()
         self.num_groups, self.channels, self.dtype = num_groups, in_channel, dtype
-        self.style = Linear(style_dim, in_channel * 2, dense_init(1.0), dtype=dtype)
-        self.init_weights()
-
-    def init_weights(self, generator: torch.Generator | None = None) -> None:
-        self.style.init_weights(generator)
-        with torch.no_grad():
-            self.style.bias[: self.channels] = 1.0
-            self.style.bias[self.channels :] = 0.0
+        self.style = Linear(style_dim, in_channel * 2, dense_init(1.0), dtype=dtype,
+                            bias_init=functools.partial(_style_bias_init, in_channel))
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         gamma, beta = self.style(style).chunk(2, dim=1)

@@ -159,13 +159,20 @@ def get_timestep_embedding(
 
 
 class Linear(nn.Module):
-    """Linear layer, weight (out, in), zero bias; `init` defaults to dense_init(1)."""
+    """Linear layer, weight (out, in); `init` defaults to dense_init(1).
+
+    `bias_init(bias)` fills the bias in place (zeros by default), as flax's
+    `Dense(bias_init=)`: the layer that owns a parameter sets it, so a
+    model-level `init_weights` walk draws each weight once and keeps every
+    constant."""
 
     def __init__(self, in_features: int, out_features: int, init: Initializer | None = None,
-                 use_bias: bool = True, dtype=None):
+                 use_bias: bool = True, dtype=None,
+                 bias_init: Callable[[torch.Tensor], object] | None = None):
         super().__init__()
         self.dtype = dtype
         self._init = init or dense_init(1.0)
+        self._bias_init = bias_init or nn.init.zeros_
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.zeros(out_features)) if use_bias else None
         self.init_weights()
@@ -174,7 +181,8 @@ class Linear(nn.Module):
         out_f, in_f = self.weight.shape
         self._init(self.weight, in_f, out_f, generator)
         if self.bias is not None:
-            nn.init.zeros_(self.bias)
+            with torch.no_grad():
+                self._bias_init(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = compute_dtype(x, self.weight, self.dtype)

@@ -66,10 +66,11 @@ _ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), 
 def _not_decodable(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: ddgan_torch reads PNG, JPEG (baseline, progressive, arithmetic-coded, at "
-        "any integral sampling), WebP, BMP, PBM/PGM/PPM and TIFF (classic and BigTIFF; "
-        "uncompressed, LZW, Deflate, PackBits, LZMA, CCITT and JPEG; integer and float "
-        "samples) files in the layouts PIL reads, except those ROADMAP.md Queue 1 item 13i "
-        "lists; this one needs an image decoder (item 13i)."
+        "any integral sampling), WebP, BMP, Netpbm (PBM/PGM/PPM, PFM and PIL's own magics), "
+        "TIFF (classic and BigTIFF; uncompressed, LZW, Deflate, PackBits, LZMA, CCITT and "
+        "JPEG; integer and float samples), GIF, ICO and TGA files in the layouts PIL reads, "
+        "except those ROADMAP.md Queue 1 item 13i lists; this one needs an image decoder "
+        "(item 13i)."
     )
 
 
@@ -285,7 +286,12 @@ def decode_png(data: bytes) -> np.ndarray:
 def image_format(data: bytes) -> str | None:
     """The format of an image file's bytes, told by its first bytes as PIL
     tells it (not by the file's extension): "png", "jpeg", "webp", "bmp",
-    "netpbm", "tiff", or None."""
+    "netpbm", "tiff", "gif", "ico", "tga", or None. TGA has no magic: it is
+    asked last, as PIL asks it after the formats that have one
+    (`data.tga.is_tga`)."""
+    from .data.gif import is_gif
+    from .data.ico import is_ico
+    from .data.tga import is_tga
     from .data.webp import is_webp
 
     if data.startswith(_PNG_SIGNATURE):
@@ -300,6 +306,12 @@ def image_format(data: bytes) -> str | None:
         return "netpbm"
     if data[:4] in (b"II*\0", b"MM\0*", b"MM*\0", b"II\0*", b"II+\0", b"MM\0+"):
         return "tiff"
+    if is_gif(data):
+        return "gif"
+    if is_ico(data):
+        return "ico"
+    if is_tga(data):
+        return "tga"
     return None
 
 
@@ -342,12 +354,14 @@ def decode_images(datas) -> list[np.ndarray]:
     `Image.open(f).convert("RGB")` gives them, the format told by its first
     bytes (`image_format`): PNGs through `decode_pngs` (together), JPEGs
     through `data.jpeg.decode_jpeg`, WebP files through
-    `data.webp.decode_webp`, BMP through `data.bmp.decode_bmp`, PBM, PGM
-    and PPM through `data.netpbm.decode_netpbm`, TIFF through
-    `data.tiff.decode_tiff`; each decoder's mode to RGB by `to_rgb`. A
-    format none of them reads raises NotImplementedError naming ROADMAP.md
-    Queue 1 item 13i, a malformed file ValueError."""
-    from .data import bmp, jpeg, netpbm, tiff, webp
+    `data.webp.decode_webp`, BMP through `data.bmp.decode_bmp`, Netpbm
+    through `data.netpbm.decode_netpbm`, TIFF through
+    `data.tiff.decode_tiff`, GIF through `data.gif.decode_gif`, ICO through
+    `data.ico.decode_ico`, TGA through `data.tga.decode_tga`; each
+    decoder's mode to RGB by `to_rgb`. A format none of them reads raises
+    NotImplementedError naming ROADMAP.md Queue 1 item 13i, a malformed
+    file ValueError."""
+    from .data import bmp, gif, ico, jpeg, netpbm, tga, tiff, webp
 
     datas = [bytes(d) for d in datas]
     kinds = [image_format(d) for d in datas]
@@ -370,6 +384,12 @@ def decode_images(datas) -> list[np.ndarray]:
             out[i] = to_rgb(*netpbm.decode_netpbm(d))
         elif k == "tiff":
             out[i] = to_rgb(*tiff.decode_tiff(d))
+        elif k == "gif":
+            out[i] = to_rgb(*gif.decode_gif(d))
+        elif k == "ico":
+            out[i] = ico.decode_ico(d)
+        elif k == "tga":
+            out[i] = to_rgb(*tga.decode_tga(d))
     return out
 
 

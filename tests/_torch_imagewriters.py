@@ -1,7 +1,10 @@
 """Writers, from the formats' specifications, of image files that PIL
 reads but does not write: PNG at any bit depth with Adam7 interlace; BMP
 with OS/2 and v3-v5 headers, RLE4, RLE8 and bitfields; PBM, PGM and PPM in
-plain and raw form at any maxval; TIFF in strips or tiles, planar or not,
+plain and raw form at any maxval, and PFM and PIL's own Netpbm magics; GIF
+at any LZW code size, interlaced, with either colour table, in or past its
+screen; TGA of every type, raw or RLE, at each origin; ICO holding PNG or
+BMP entries with their AND masks; TIFF in strips or tiles, planar or not,
 either byte order, classic or BigTIFF, with PackBits, LZW (new and old bit
 order), Deflate or LZMA, predictor 2 or 3 (floating point), fill order 2,
 or strips coded by a caller (JPEG: `jpeg_tiff`); baseline JPEG at any
@@ -202,12 +205,20 @@ def bmp(pixels: np.ndarray, bits: int, *, header: int = 40, palette: np.ndarray 
 
 
 # ------------------------------------------------------------------- Netpbm
-def netpbm(pixels: np.ndarray, magic: str, maxval: int = 255, comment: bool = True) -> bytes:
-    """P1-P6 bytes of `pixels` ((H, W) bits for P1/P4 with 1 = black,
-    (H, W) grey for P2/P5, (H, W, 3) for P3/P6) at `maxval`, with a
-    comment and mixed whitespace in the header."""
+def netpbm(pixels: np.ndarray, magic: str, maxval: int = 255, comment: bool = True,
+           scale: float = -1.0) -> bytes:
+    """Netpbm bytes of `pixels` ((H, W) bits for P1/P4 with 1 = black,
+    (H, W) grey for P2/P5, (H, W, 3) for P3/P6, (H, W, 4) for P0CMYK,
+    PyCMYK and PyRGBA, (H, W) indices for PyP, (H, W) floats for Pf, whose
+    rows go bottom-up, little-endian under a negative `scale`) at `maxval`,
+    with a comment and mixed whitespace in the header. A six-byte magic is
+    followed by the width with no space, as PIL allows."""
     h, w = pixels.shape[:2]
-    head = f"{magic}\n" + ("# written by the tests\n" if comment else "") + f"{w}\t{h}\r\n"
+    gap = "" if len(magic) == 6 else "\n"
+    head = f"{magic}{gap}" + ("# written by the tests\n" if comment else "") + f"{w}\t{h}\r\n"
+    if magic == "Pf":
+        body = np.ascontiguousarray(pixels[::-1]).astype("<f4" if scale < 0 else ">f4")
+        return (head + f"{scale}\n").encode() + body.tobytes()
     if magic not in ("P1", "P4"):
         head += f"  {maxval}\n"
     head = head.encode()
@@ -603,6 +614,32 @@ def netpbm_matrix(Image, sizes=NETPBM_SIZES) -> list:
         buf = io.BytesIO()
         im.save(buf, "PPM")
         out.append((f"netpbm PIL {mode}", buf.getvalue()))
+    return out + netpbm_more_matrix(Image, sizes)
+
+
+def netpbm_more_matrix(Image, sizes=NETPBM_SIZES) -> list:
+    """The magics PIL opens beyond P1-P6: Pf (floats, either byte order,
+    scales of any size), P0CMYK and PyCMYK, PyRGBA and PyP (no palette) at
+    maxvals 1, 15, 255, 1000 and 65535; and PIL's own Pf files."""
+    import io
+
+    rs = np.random.RandomState(22)
+    out = []
+    for h, w in sizes:
+        for scale in (-1.0, 1.0, -0.25, 3.5):
+            px = (rs.randn(h, w) * 200 + 60).astype(np.float32)
+            px.reshape(-1)[:3] = [np.inf, -0.5, 254.99][:px.size]
+            out.append((f"netpbm Pf scale {scale} {h}x{w}", netpbm(px, "Pf", scale=scale)))
+        for magic, bands in (("P0CMYK", 4), ("PyCMYK", 4), ("PyRGBA", 4), ("PyP", 1)):
+            for maxval in (1, 15, 255, 1000, 65535):
+                shape = (h, w, bands) if bands > 1 else (h, w)
+                out.append((f"netpbm {magic} maxval {maxval} {h}x{w}",
+                            netpbm(rs.randint(0, maxval + 1, shape), magic, maxval,
+                                   comment=(h + w) % 2 == 0)))
+    im = Image.fromarray((rs.randn(7, 9) * 100).astype(np.float32), "F")
+    buf = io.BytesIO()
+    im.save(buf, "PPM")
+    out.append(("netpbm PIL F", buf.getvalue()))
     return out
 
 
@@ -1324,6 +1361,7 @@ def once_refused(Image) -> dict:
         "tiff old-style JPEG (compression 6)": ojpeg_tiff(smooth_field(rs, 24, 24, 3),
                                                           [(2, 2), (1, 1), (1, 1)],
                                                           jpeg_tables(Image, 85)),
+        "netpbm PFM (Pf)": b"Pf\n2 1\n-1.0\n" + np.zeros(2, "<f4").tobytes(),
     }
 
 
@@ -1356,7 +1394,320 @@ def more_kinds(Image) -> dict:
                                compression=8)),
         "JPEG 4:4:0": ("jpg", jpeg_encode(arr, JPEG_SAMPLINGS["4:4:0"], tables)),
         "JPEG 4:1:1": ("jpg", jpeg_encode(arr, JPEG_SAMPLINGS["4:1:1"], tables)),
+        "PFM": ("ppm", netpbm((arr[:, :, 0] * 1.3).astype(np.float32), "Pf", scale=-1.0)),
+        # the FID loaders list files by extension and read them by their bytes
+        "GIF named .png": ("png", gif(arr[:, :, 1] // 64, 2, global_table=rs.randint(
+            0, 256, (4, 3)), interlace=True)),
+        "TGA named .bmp": ("bmp", tga(tga_rle(arr[::-1, :, ::-1].tobytes(), 3, 26, rs), 26, 21,
+                                      10, 24)),
+        "ICO named .bmp": ("bmp", ico([(ico_dib(bmp(arr, 24)), 26, 21, 24, 0)])),
     })
+    return out
+
+
+# ---------------------------------------------------------------------- GIF
+GIF_PASSES = ((0, 8), (4, 8), (2, 4), (1, 2))
+
+
+def gif_codes(indices, bits: int, clear_every: int | None = None, end: bool = True) -> list:
+    """(code, width) pairs of GIF LZW (a clear code first; `clear_every`
+    codes a clear again; the end code unless `end` is False). A decoder
+    adds each entry one code after the encoder and widens its codes once
+    it adds entry 2^width - 1, so the encoder widens once it adds entry
+    2^width."""
+    clear, eoi = 1 << bits, (1 << bits) + 1
+    size, table, nxt = bits + 1, {}, eoi + 1
+    out, w, count = [(clear, size)], b"", 0
+    for px in indices:
+        wc = w + bytes((int(px),))
+        if len(wc) == 1 or wc in table:
+            w = wc
+            continue
+        out.append((w[0] if len(w) == 1 else table[w], size))
+        count += 1
+        if nxt < 4096:
+            table[wc] = nxt
+            if nxt == 1 << size and size < 12:
+                size += 1
+            nxt += 1
+        w = wc[-1:]
+        if clear_every and count % clear_every == 0:
+            out += [(w[0] if len(w) == 1 else table[w], size), (clear, size)]
+            w, size, table, nxt = b"", bits + 1, {}, eoi + 1
+    if w:
+        out.append((w[0] if len(w) == 1 else table[w], size))
+    return out + [(eoi, size)] if end else out
+
+
+def gif_blocks(codes: list, block: int = 255) -> bytes:
+    """The codes packed LSB first into sub-blocks of `block` bytes, and the
+    empty block that ends them."""
+    acc = nbits = 0
+    packed = bytearray()
+    for code, width in codes:
+        acc |= code << nbits
+        nbits += width
+        while nbits >= 8:
+            packed.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+    if nbits:
+        packed.append(acc & 255)
+    out = bytearray()
+    for k in range(0, len(packed), block):
+        chunk = packed[k:k + block]
+        out += bytes((len(chunk),)) + chunk
+    return bytes(out) + b"\0"
+
+
+def gif(indices: np.ndarray, bits: int, *, screen: tuple | None = None, at: tuple = (0, 0),
+        global_table=None, local_table=None, interlace: bool = False,
+        transparency: int | None = None, version: bytes = b"GIF89a", extensions: bytes = b"",
+        codes: list | None = None, block: int = 255, clear_every: int | None = None) -> bytes:
+    """A GIF of one frame of palette `indices` (H, W) at offset `at` in a
+    logical screen (`screen` (W, H), default the frame's), with global and
+    local colour tables ((n, 3) arrays, n a power of two), a graphic control
+    extension giving `transparency`, and `extensions` (raw bytes) before
+    it; LZW at minimum code size `bits`, or the given `codes`."""
+    h, w = indices.shape
+    sw, sh = screen or (w, h)
+    flags, table = 0, b""
+    if global_table is not None:
+        flags, table = 0x80 | (len(global_table).bit_length() - 2), np.asarray(
+            global_table, np.uint8).tobytes()
+    out = version + struct.pack("<HHBBB", sw, sh, flags, 0, 0) + table + extensions
+    if transparency is not None:
+        out += b"\x21\xf9\x04\x01\x0a\x00" + bytes((transparency,)) + b"\0"
+    fflags, table = 0, b""
+    if local_table is not None:
+        fflags, table = 0x80 | (len(local_table).bit_length() - 2), np.asarray(
+            local_table, np.uint8).tobytes()
+    order = indices
+    if interlace:
+        fflags |= 0x40
+        order = indices[np.concatenate([np.arange(s, h, k) for s, k in GIF_PASSES])]
+    if codes is None:
+        codes = gif_codes(order.reshape(-1), bits, clear_every)
+    return (out + b"," + struct.pack("<HHHHB", at[0], at[1], w, h, fflags) + table
+            + bytes((bits,)) + gif_blocks(codes, block) + b";")
+
+
+GIF_SIZES = [(1, 1), (5, 3), (11, 17), (29, 31)]
+
+
+def gif_matrix(Image, sizes=GIF_SIZES) -> list:
+    """GIF87a and 89a at LZW minimum code sizes 2-8 and 12 (13-bit codes
+    for literals only), global and local tables (and the grey
+    ramp, which PIL drops, and PIL's global-table quirk under a ramp local
+    one), none, interlaced, the frame inside and past a logical screen,
+    transparency, clear codes mid-stream, the table filled without a clear,
+    one-byte sub-blocks, comment and application extensions; and PIL's own
+    files."""
+    import io
+
+    rs = np.random.RandomState(19)
+    ramp = np.repeat(np.arange(256)[:, None], 3, axis=1)
+    out = []
+    for h, w in sizes:
+        for bits in (2, 3, 4, 5, 8, 12):
+            colours = min(1 << max(bits, 1), 256)
+            idx = rs.randint(0, colours, (h, w))
+            if (h * w) % 2:
+                idx = np.repeat(idx.reshape(-1)[: (h * w + 3) // 4], 4)[: h * w].reshape(h, w)
+            table = rs.randint(0, 256, (colours, 3))
+            tag = f"{bits}-bit codes {h}x{w}"
+            out.append((f"gif global table {tag}", gif(idx, bits, global_table=table)))
+            out.append((f"gif local table interlaced {tag}",
+                        gif(idx, bits, local_table=table, interlace=True, version=b"GIF87a")))
+            out.append((f"gif no table {tag}", gif(idx, bits)))
+            out.append((f"gif in a larger screen, transparency {tag}",
+                        gif(idx, bits, global_table=table, screen=(w + 3, h + 2), at=(2, 1),
+                            transparency=int(idx[0, 0]))))
+            out.append((f"gif past its screen, clears, 1-byte blocks {tag}",
+                        gif(idx, bits, global_table=table, screen=(w // 2, 1), at=(1, 2),
+                            clear_every=5, block=1)))
+        idx = rs.randint(0, 4, (h, w))
+        four = rs.randint(0, 256, (4, 3))
+        out.append((f"gif ramp global table {h}x{w}", gif(idx, 2, global_table=ramp[:4])))
+        out.append((f"gif ramp local table under a global one {h}x{w}",
+                    gif(idx, 2, global_table=four, local_table=ramp[:4])))
+        out.append((f"gif short table {h}x{w}",
+                    gif(rs.randint(0, 16, (h, w)), 4, global_table=four)))
+        out.append((f"gif extensions {h}x{w}",
+                    gif(idx, 2, global_table=four, extensions=(
+                        b"\x21\xfe\x05hello\x03abc\x00"
+                        + b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"))))
+    noise = rs.randint(0, 256, (80, 80))
+    out.append(("gif 12-bit table full without a clear 80x80",
+                gif(noise, 8, global_table=rs.randint(0, 256, (256, 3)))))
+    for mode in ("L", "P", "RGB"):
+        im = Image.fromarray(smooth_field(rs, 19, 23, 3)).convert(mode)
+        buf = io.BytesIO()
+        im.save(buf, "GIF", interlace=mode == "P")
+        out.append((f"gif PIL {mode}", buf.getvalue()))
+    return out
+
+
+# ---------------------------------------------------------------------- TGA
+def tga(pixels: bytes, w: int, h: int, image_type: int, depth: int, *, cmap=None,
+        map_start: int = 0, map_depth: int = 24, ident: bytes = b"", flags: int = 0) -> bytes:
+    """A TGA of `pixels` (the bytes after the colour map, raw rows or RLE
+    packets) with an 18-byte header; `cmap` the colour map's bytes."""
+    n = 0 if cmap is None else len(cmap) // (map_depth // 8)
+    head = struct.pack("<BBBHHBHHHHBB", len(ident), int(cmap is not None), image_type, map_start,
+                       n, map_depth if cmap is not None else 0, 0, 0, w, h, depth, flags)
+    return head + ident + (cmap or b"") + pixels
+
+
+def tga_rle(rows: bytes, pixel_bytes: int, w: int, rs, cross: bool = False) -> bytes:
+    """TGA run-length packets of `rows` (raw, row after row): runs where
+    pixels repeat, else literals, of random lengths up to 128; literals may
+    run on into the next row, runs only when `cross` (PIL refuses those)."""
+    pixels = [rows[k:k + pixel_bytes] for k in range(0, len(rows), pixel_bytes)]
+    out, i = bytearray(), 0
+    while i < len(pixels):
+        n = min(int(rs.randint(1, 129)), len(pixels) - i)
+        same = 1
+        while same < n and pixels[i + same] == pixels[i]:
+            same += 1
+        if same > 1 and (cross or (i % w) + same <= w):
+            out += bytes((0x80 | (same - 1),)) + pixels[i]
+            i += same
+        else:
+            out += bytes((n - 1,)) + b"".join(pixels[i:i + n])
+            i += n
+    return bytes(out)
+
+
+TGA_SIZES = [(1, 1), (3, 7), (9, 17)]
+# (image type, depth, colour map depth or None)
+TGA_LAYOUTS = [(1, 8, 24), (1, 8, 16), (2, 16, None), (2, 24, None), (2, 32, None),
+               (3, 1, None), (3, 8, None), (3, 16, None), (3, 8, 24), (3, 16, 16),
+               (9, 8, 24), (10, 16, None), (10, 24, None), (10, 32, None), (11, 8, None),
+               (11, 16, None), (11, 8, 16)]
+
+
+def tga_matrix(Image, sizes=TGA_SIZES) -> list:
+    """Each layout PIL reads (colour-mapped with 16- and 24-bit maps, grey
+    under a map, true colour at 16, 24 and 32 bits, grey at 1, 8 and 16),
+    raw and RLE (literals across rows, runs repeated pixels), each of the
+    four origins, maps starting past entry 0 and shorter than the indices,
+    an ID field; and PIL's own files."""
+    import io
+
+    rs = np.random.RandomState(20)
+    out = []
+    for h, w in sizes:
+        for kind, depth, map_depth in TGA_LAYOUTS:
+            for flags in (0, 0x10, 0x20, 0x30):
+                row_bytes = (w * depth + 7) // 8
+                raw = rs.randint(0, 256 if map_depth is None else 40, row_bytes * h)
+                if kind & 8:
+                    raw = np.repeat(raw.reshape(-1, max(depth // 8, 1))[::3], 3, axis=0)
+                raw = raw.astype(np.uint8).tobytes()[:row_bytes * h]
+                body = tga_rle(raw, depth // 8, w, rs) if kind & 8 else raw
+                cmap, start = None, 0
+                if map_depth is not None:
+                    start = int(rs.choice([0, 5]))
+                    cmap = rs.randint(0, 256, 32 * map_depth // 8).astype(np.uint8).tobytes()
+                out.append((f"tga type {kind} {depth}-bit map {map_depth} flags {flags:#x} {h}x{w}",
+                            tga(body, w, h, kind, depth, cmap=cmap, map_start=start,
+                                map_depth=map_depth or 24, flags=flags,
+                                ident=b"ID" if flags == 0x30 else b"")))
+    for mode in ("1", "L", "LA", "P", "RGB", "RGBA"):
+        im = Image.fromarray(smooth_field(rs, 13, 11, 3)).convert(mode)
+        for rle in (False, True):
+            if mode == "1" and rle:
+                continue
+            buf = io.BytesIO()
+            im.save(buf, "TGA", rle=rle)
+            out.append((f"tga PIL {mode}{' RLE' if rle else ''}", buf.getvalue()))
+    return out
+
+
+# ---------------------------------------------------------------------- ICO
+def ico_dib(bmp_file: bytes, mask_rows: int | None = None) -> bytes:
+    """The DIB of an ICO entry from a bottom-up BMP file: no file header,
+    the height doubled, the AND mask (1 bit a pixel, rows padded to 32
+    bits) after the pixels; `mask_rows` cuts the mask short."""
+    size = struct.unpack_from("<I", bmp_file, 14)[0]
+    head = bytearray(bmp_file[14:14 + size])
+    if size == 12:
+        w, h = struct.unpack_from("<HH", head, 4)
+        struct.pack_into("<H", head, 6, 2 * h)
+    else:
+        w, h = struct.unpack_from("<ii", head, 4)
+        struct.pack_into("<i", head, 8, 2 * h)
+    stride = (w + 31) // 32 * 4
+    mask = bytes(stride * (h if mask_rows is None else mask_rows))
+    return bytes(head) + bmp_file[14 + size:] + mask
+
+
+def ico(entries: list) -> bytes:
+    """An ICO of (payload, width, height, bits a pixel, colours) entries,
+    each payload a PNG or a DIB (`ico_dib`); widths and heights of 256 as
+    0."""
+    out = struct.pack("<HHH", 0, 1, len(entries))
+    at = 6 + 16 * len(entries)
+    body = b""
+    for payload, w, h, bpp, colours in entries:
+        out += struct.pack("<BBBBHHII", w % 256, h % 256, colours % 256, 0, 1, bpp, len(payload),
+                           at)
+        body += payload
+        at += len(payload)
+    return out + body
+
+
+ICO_SIZES = [(1, 1), (7, 5), (16, 16), (33, 40)]
+
+
+def ico_matrix(Image, sizes=ICO_SIZES) -> list:
+    """ICOs whose largest entry (PIL's choice; of equal areas, the least
+    colour depth) is a PNG (RGBA, RGB, P, L) or a DIB of 1, 4, 8, 24 or 32
+    bits (OS/2 and 40-byte headers, RLE8, bitfields) with its AND mask,
+    beside smaller or deeper decoys; and PIL's own files."""
+    import io
+
+    rs = np.random.RandomState(21)
+    out = []
+
+    def png_of(arr, mode):
+        buf = io.BytesIO()
+        Image.fromarray(arr).convert(mode).save(buf, "PNG")
+        return buf.getvalue()
+
+    for h, w in sizes:
+        rgb = rs.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        decoy = (png_of(rs.randint(0, 256, (2, 2, 3)).astype(np.uint8), "RGB"), 2, 2, 32, 0)
+        for mode in ("RGBA", "RGB", "P", "L"):
+            out.append((f"ico PNG {mode} {h}x{w}",
+                        ico([decoy, (png_of(rgb, mode), w, h, 32, 0)])))
+        dibs = []
+        for bits in (1, 4, 8):
+            idx = rs.randint(0, 1 << bits, (h, w))
+            pal = rs.randint(0, 256, (1 << bits, 3))
+            dibs.append((f"{bits}-bit", ico_dib(bmp(idx, bits, palette=pal)), bits, 1 << bits))
+            if bits == 8:
+                runs = np.repeat(idx[:, ::2], 2, axis=1)[:, :w]
+                dibs.append(("RLE8", ico_dib(bmp(runs, 8, palette=pal, compression=1)), 8, 0))
+                dibs.append(("OS/2 8-bit", ico_dib(bmp(idx, 8, palette=pal, header=12)), 8, 0))
+        dibs.append(("24-bit", ico_dib(bmp(rgb, 24)), 24, 0))
+        dibs.append(("32-bit", ico_dib(bmp(rgb, 32)), 32, 0))
+        dibs.append(("bitfields 16-bit", ico_dib(bmp(rs.randint(0, 1 << 16, (h, w)), 16,
+                                                     compression=3, masks=BITFIELDS_16[0])), 16, 0))
+        for name, dib, bits, colours in dibs:
+            deeper = (ico_dib(bmp(rgb, 32)), w, h, 32, 0)
+            out.append((f"ico DIB {name} {h}x{w}",
+                        ico([decoy, (dib, w, h, bits, colours)]
+                            + ([deeper] if bits < 32 else []))))
+    im = Image.fromarray(smooth_field(rs, 48, 48, 3))
+    for sizes_ in ([(48, 48)], [(16, 16), (32, 32), (48, 48)]):
+        buf = io.BytesIO()
+        im.save(buf, "ICO", sizes=sizes_)
+        out.append((f"ico PIL {len(sizes_)} sizes", buf.getvalue()))
+    buf = io.BytesIO()
+    im.convert("P").save(buf, "ICO", sizes=[(32, 32)], bitmap_format="bmp")
+    out.append(("ico PIL bitmap", buf.getvalue()))
     return out
 
 
@@ -1410,8 +1761,16 @@ def refused(Image) -> dict:
         "bmp JPEG inside (compression 4)": bmp(rgb, 24)[:30] + b"\4\0\0\0" + bmp(rgb, 24)[34:],
         "bmp 16-bit bitfields PIL does not read": bmp(rs.randint(0, 1 << 16, (4, 5)), 16,
                                                      compression=3, masks=(0xF00, 0xF0, 0xF)),
-        "netpbm PFM (Pf)": b"Pf\n2 1\n-1.0\n" + np.zeros(2, "<f4").tobytes(),
+        "netpbm colour PFM (PF: PIL does not open it)": b"PF\n2 1\n-1.0\n" + bytes(24),
         "gif": b"GIF89a\x01\0\x01\0\0\0\0;",
+        "gif LZW minimum code size 13": gif(np.zeros((2, 2), np.uint8), 8)[:-6].replace(
+            b"\0\0\x02\0\x02\0\0\x08", b"\0\0\x02\0\x02\0\0\x0d") + b"\x01\x00\x00;",
+        "gif a frame of no pixels (what PIL gives depends on the data after it)": gif(np.zeros((1, 1), np.uint8), 2).replace(
+            b",\0\0\0\0\x01\0\x01\0", b",\0\0\0\0\0\0\x01\0"),
+        "tga a 32-bit colour map": tga(bytes(4), 2, 2, 1, 8, cmap=bytes(16), map_depth=32),
+        "tga a colour map on true colour": tga(bytes(12), 2, 2, 2, 24, cmap=bytes(6)),
+        "tga colour-mapped pixels without a map": tga(bytes(4), 2, 2, 1, 8, map_start=5),
+        "tga run-length coded 1-bit pixels": tga(b"\x81\xff", 8, 2, 11, 1),
     }
 
 
@@ -1456,4 +1815,16 @@ def broken(Image) -> dict:
         "tiff BigTIFF header cut": tiff(rgb, photometric=2, big=True)[:12],
         "jpeg progressive cut": prog[:len(prog) // 2],
         "jpeg bad progression": bytes(bad_scan),
+        "netpbm Pf scale 0": b"Pf\n2 1\n0.0\n" + np.zeros(2, "<f4").tobytes(),
+        "netpbm P0CMYK truncated": netpbm(rs.randint(0, 256, (3, 3, 4)), "P0CMYK")[:-3],
+        "gif truncated": gif(rs.randint(0, 4, (9, 7)), 2)[:-12],
+        "gif code past the next free entry": gif(np.zeros((3, 3), np.uint8), 2, codes=[
+            (4, 3), (0, 3), (7, 3), (5, 3)]),
+        "gif end code before the image is full": gif(np.zeros((3, 3), np.uint8), 2, codes=[
+            (4, 3), (0, 3), (5, 3)]),
+        "tga truncated": tga(bytes(range(30)), 4, 3, 2, 24)[:-7],
+        "tga run packet across a row": tga(b"\x83\x07", 2, 2, 11, 8),
+        "ico mask past the file's end": (lambda d: d[:14] + struct.pack("<I", len(d)) + d[18:])(
+            ico([(ico_dib(bmp(rgb, 24)), 7, 9, 24, 0)])),
+        "ico directory cut": ico([(ico_dib(bmp(rgb, 24)), 7, 9, 24, 0)])[:14],
     }

@@ -340,7 +340,8 @@ def test_fid_loader_reads_more_tiff_and_jpeg_kinds_as_the_jax_package_does(tmp_p
     """One file of each kind of `_torch_imagewriters.more_kinds` (CCITT in
     every coding, JPEG-in-TIFF RGB and YCbCr 4:2:0, LZMA, BigTIFF, float
     with predictor 3, signed 16- and 32-bit, fill order 2, YCbCr data units
-    under LZW, old-style JPEG, CIELAB, JPEG 4:4:0 and 4:1:1) in one
+    under LZW, old-style JPEG, CIELAB, JPEG 4:4:0 and 4:1:1, PFM, and GIF,
+    TGA and ICO files under the extensions both loaders list) in one
     directory, through the port's FID reader and
     `ddgan_tpu/eval/fid.py:_load_image_01`, exactly."""
     kinds = W.more_kinds(Image)

@@ -31,7 +31,9 @@ from ddgan_tpu.config import Config as JConfig
 import ddgan_torch.data as tdata
 from ddgan_torch.config import Config
 from ddgan_torch.data import lmdb, lmdb_datasets as tlmdb
+from ddgan_torch.utils import decode_images, image_format
 
+import _torch_imagewriters as W
 from _torch_lmdb import nodemax, write_lmdb
 
 PSIZE = 4096
@@ -374,3 +376,62 @@ def test_celeba_lmdb_of_webp_values_matches(tmp_path, fake, flags):
     jds, tds = jdata.make_dataset(jcfg), tdata.make_dataset(tcfg)
     assert isinstance(tds, tlmdb.LMDBDataset) and tds.is_encoded
     _assert_items(jds, tds, range(10))
+
+
+def _gif_or_tga(rs, i, kind):
+    """A GIF (PIL's, or the tests' writer's, interlaced with a local table)
+    or a TGA (PIL's raw and RLE, and the writer's colour-mapped RLE)
+    value."""
+    h, w = [(20, 26), (31, 17), (24, 24), (18, 22)][i % 4]
+    arr = _smooth(rs, h, w, 3)
+    im = Image.fromarray(arr)
+    buf = io.BytesIO()
+    if kind == "gif" and i % 2:
+        q = im.quantize(16)
+        table = np.asarray(q.getpalette()[:48], np.uint8).reshape(16, 3)
+        return W.gif(np.asarray(q), 4, local_table=table, interlace=True)
+    if kind == "gif":
+        im.convert("P" if i % 4 else "L").save(buf, format="GIF")
+    elif i % 3 == 2:
+        q = im.quantize(16)
+        cmap = np.asarray(q.getpalette()[:48], np.uint8).reshape(16, 3)[:, ::-1].tobytes()
+        rows = np.asarray(q)[::-1].tobytes()
+        return W.tga(W.tga_rle(rows, 1, w, rs), w, h, 9, 8, cmap=cmap)
+    else:
+        im.save(buf, format="TGA", rle=bool(i % 3))
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("kind", ["gif", "tga"])
+def test_lmdb_of_gif_or_tga_values_loads_and_trains(tmp_path, fake, kind, monkeypatch):
+    """An LMDB of GIF or TGA values: celeba_256's LMDBDataset's items
+    equal the JAX package's, which PIL decodes, raw and through the
+    transforms; as an LSUN class (whose length is the LMDB's, where
+    celeba_256 asks for 27,000 keys) the port's loader batches them and a
+    tiny config takes a training step on them on the CPU."""
+    from ddgan_torch.train import loop
+
+    rs = np.random.RandomState(11 if kind == "gif" else 12)
+    values = {str(i).encode(): _gif_or_tga(rs, i, kind) for i in range(8)}
+    assert {image_format(v) for v in values.values()} == {kind}
+    _both_dbs(fake, tmp_path / "train.lmdb", values)
+    for flags in TRANSFORMS:
+        jcfg, tcfg = _configs(flags, dataset="celeba_256", data_dir=str(tmp_path))
+        jds, tds = jdata.make_dataset(jcfg), tdata.make_dataset(tcfg)
+        _assert_items(jds, tds, range(8))
+    for v in values.values():
+        np.testing.assert_array_equal(decode_images([v])[0],
+                                      np.asarray(Image.open(io.BytesIO(v)).convert("RGB")))
+    write_lmdb(tmp_path / "church_outdoor_train_lmdb",
+               {f"k{i:02d}".encode(): v for i, v in enumerate(values.values())})
+    monkeypatch.chdir(tmp_path)
+    cfg = Config(dataset="lsun", data_dir=str(tmp_path), image_size=16, num_channels=3,
+                 do_resize="yes", to_tensor_transform="yes", use_normalize="yes",
+                 CenterCrop="yes", num_channels_dae=8, ch_mult=[1, 2], num_res_blocks=1,
+                 attn_resolutions=[8], nz=4, z_emb_dim=8, n_mlp=1, t_emb_dim=8, ngf=4,
+                 num_timesteps=2, batch_size=4, limited_iter=1, num_epoch=1, dropout=0.0,
+                 lazy_reg=2, seed=5, exp=f"lmdb_{kind}", save_content=False)
+    loop.train(cfg, device="cpu")
+    losses = (tmp_path / "saved_info" / "dd_gan" / "lsun" / f"lmdb_{kind}"
+              / "losses.json").read_text()
+    assert '"G_loss"' in losses and "NaN" not in losses

@@ -1,10 +1,12 @@
-"""The port's PBM/PGM/PPM reader (`ddgan_torch.data.netpbm`, through
+"""The port's Netpbm reader (`ddgan_torch.data.netpbm`, through
 `utils.decode_images`) against PIL's `Image.open(f).convert("RGB")`, bit
 for bit: P1-P6, plain and raw, at maxvals 1, 15, 255, 1000 and 65535,
 with comments and mixed whitespace in the header and in plain data, and
-PIL's own files (`tests/_torch_imagewriters.py`); PIL's scaling of odd
-maxvals; other magics raise NotImplementedError naming ROADMAP.md item
-13i, malformed files ValueError.
+PIL's own files (`tests/_torch_imagewriters.py`); the other magics PIL
+opens: Pf (floats, either byte order, bottom-up), P0CMYK, PyCMYK, PyRGBA
+and PyP (no palette: black), a six-byte magic glued to the width; PIL's
+scaling of odd maxvals; what PIL does not open raises NotImplementedError
+naming ROADMAP.md item 13i, malformed files ValueError.
 """
 
 import functools
@@ -28,7 +30,8 @@ def _pil(data: bytes) -> np.ndarray:
     return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
 
 
-@pytest.mark.parametrize("group", ["P1", "P2", "P3", "P4", "P5", "P6", "PIL"])
+@pytest.mark.parametrize("group", ["P1", "P2", "P3", "P4", "P5", "P6", "PIL", "Pf", "P0CMYK",
+                                   "PyCMYK", "PyRGBA", "PyP"])
 def test_matrix_equals_pil(group):
     cases = [(label, d) for label, d in _matrix() if f" {group} " in label + " "]
     assert len(cases) >= 3

@@ -210,6 +210,29 @@ def test_webp_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
         (pkg / "_build", True)]
 
 
+def test_gif_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
+    """As the JPEG decoder: a copy of the package builds gif_decode.cpp at
+    first use into ddgan_torch/_build/ and adds nothing else; an LZW
+    stream cut short raises ValueError, with no fallback."""
+    pkg = tmp_path / "ddgan_torch"
+    shutil.copytree(ROOT / "ddgan_torch", pkg,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    before = {p for p in tmp_path.rglob("*") if p.is_file()}
+    code = ("from ddgan_torch.data import gif\n"
+            "try:\n"
+            "    gif._lzw(b'\\x02\\x04', 0, 2, 64)\n"
+            "except ValueError as e:\n"
+            "    print('malformed:', e)\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "CXX")}
+    env["PYTHONDONTWRITEBYTECODE"] = "1"
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0 and "malformed" in res.stdout, res.stdout + res.stderr
+    added = {p for p in tmp_path.rglob("*") if p.is_file()} - before
+    assert [(p.parent, p.name.startswith("libgif_decode_")) for p in added] == [
+        (pkg / "_build", True)]
+
+
 def test_tiff_decoder_builds_only_into_the_ignored_build_dir(tmp_path):
     """As the JPEG decoder: a copy of the package builds tiff_decode.cpp at
     first use into ddgan_torch/_build/ and adds nothing else; a malformed
@@ -515,8 +538,8 @@ def test_chip_smoke_image_phases_hold_on_this_host(tmp_path):
     resize = cs.resize_against_pil(Image)
     assert resize["exact"] == resize["cases"] == 171
     formats = cs.image_formats_against_pil(Image, "this machine's CPU")
-    assert formats["exact"] == formats["files"] == 2812 and formats["once_refused_read"] == 8
-    assert formats["malformed_refused"] == 20 and formats["refused_13i"] == 15
+    assert formats["exact"] == formats["files"] == 3292 and formats["once_refused_read"] == 9
+    assert formats["malformed_refused"] == 29 and formats["refused_13i"] == 21
     assert sum(cs.CUSTOM_KINDS.values()) == cs.CUSTOM_IMAGES == 64
     first = [40, 7, 0, 63, 12, 30, 5, 9]
     kinds = cs.custom_kinds(first, cs.CUSTOM_IMAGES, seed=0)

@@ -143,6 +143,23 @@ def test_train_flags_equal_the_jax_tools(recipe, jax_tool, resume, tmp_path):
     assert ours[3:] == theirs[2:]
 
 
+@pytest.mark.parametrize("recipe", ["flagship", "celeba256"])
+def test_train_seed_sets_only_the_train_cli_seed(recipe, tmp_path):
+    """--train-seed (default --seed) is the train CLI's --seed alone: the
+    data draws and the FID samples keep --seed, and the record holds both."""
+    same = _args(recipe, tmp_path, "--seed", "5")
+    other = _args(recipe, tmp_path, "--seed", "5", "--train-seed", "9")
+    assert (same.train_seed, other.train_seed, other.seed) == (5, 9, 5)
+
+    argv = soak.train_argv(same, 7, False)
+    assert argv[argv.index("--seed") + 1] == "5"
+    ours, base = soak.train_argv(other, 7, True), soak.train_argv(same, 7, True)
+    at = ours.index("--seed") + 1
+    assert ours[at] == "9" and ours[:at] + ours[at + 1:] == base[:at] + base[at + 1:]
+    rec = soak.Soak(other).record(False)
+    assert (rec["seed"], rec["train_seed"], rec["config"]["train_seed"]) == (5, 9, 9)
+
+
 def test_recipe_defaults():
     """The soaks' lengths, lr horizons (the JAX soaks' first segments),
     snapshots and sizes (the JAX tools' data); a segment that would not end

@@ -43,6 +43,9 @@ Run (40-45 min a recipe on an H100 at the defaults; a soak runs whole on
 one machine, whose content.pth it resumes from; the record goes to the
 recipe's QUALITY_*torch_r01.json at the repository root unless --out):
   python tools/quality_soak_torch.py --recipe celeba256
+`--train-seed` gives the train CLI a seed of its own (default `--seed`):
+the data and the FID samples keep `--seed`'s draws, so two soaks that
+differ in it measure the seed-to-seed spread of training.
 On the CPU at a tiny size (a few minutes; --dims 64 keeps sqrtm small):
   DDGAN_TORCH_DEVICE=cpu python tools/quality_soak_torch.py --recipe flagship \\
       --root /tmp/soak_tiny --out /tmp/soak_tiny/record.json --n-train 32 --n-real 16 \\
@@ -235,7 +238,7 @@ RECIPES = {
 def train_argv(args, num_epoch: int, resume: bool) -> list[str]:
     """The train CLI's arguments for one segment."""
     argv = RECIPES[args.recipe].flags(args) + [
-        "--exp", args.exp, "--seed", str(args.seed),
+        "--exp", args.exp, "--seed", str(args.train_seed),
         "--save_content", "--save_content_every", str(args.content_every),
         "--save_ckpt_every", str(args.ckpt_every),
         "--num_workers", "2",
@@ -609,6 +612,8 @@ class Soak:
             "dataset": (f"{a.n_train} toy 32x32 imgs in CIFAR pickle format"
                         if a.recipe == "flagship" else
                         f"{a.n_train} toy 256² jpgs via DatasetCustom"),
+            "seed": a.seed,
+            "train_seed": a.train_seed,
             "feature_space": self.feature_space,
             "device": self.device,
             "events": self.events,
@@ -685,7 +690,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fid-batch", type=int)
     ap.add_argument("--dims", type=int, default=2048,
                     help="feature width: the Inception's 64, 192, 768 or 2048")
-    ap.add_argument("--seed", type=int)
+    ap.add_argument("--seed", type=int,
+                    help="the data's and the FID samples' draws, and by default the training's")
+    ap.add_argument("--train-seed", type=int,
+                    help="the train CLI's --seed only (default: --seed): a second training run "
+                         "on the same data and FID draws")
     ap.add_argument("--exp")
     ap.add_argument("--train-timeout", type=float, default=3300.0,
                     help="seconds a segment may take")
@@ -698,6 +707,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     for k, v in recipe.defaults.items():
         if getattr(args, k) is None:
             setattr(args, k, v)
+    if args.train_seed is None:
+        args.train_seed = args.seed
     if args.root is None:
         args.root = str(Path(tempfile.gettempdir()) / f"ddgan_torch_soak_{args.recipe}")
     if args.out is None:

@@ -56,6 +56,7 @@ from ..compat import load_netg_ckpt, load_netg_pth
 from ..config import Config
 from ..diffusion import PosteriorCoefficients, sample_from_model
 from ..models import NCSNpp
+from ..trace import span
 from ..utils import save_image, to_range_0_1
 
 
@@ -132,8 +133,9 @@ def make_sampler(cfg: Config, net: NCSNpp, batch: int, device: torch.device,
     shape = (batch, cfg.num_channels, cfg.image_size, cfg.image_size)
 
     def sample() -> torch.Tensor:
-        x_init = torch.randn(shape, generator=rng, device=device)
-        return sample_from_model(pos_coeff, net, cfg.num_timesteps, x_init, cfg.nz, rng)
+        with span("ddgan.sample", device):
+            x_init = torch.randn(shape, generator=rng, device=device)
+            return sample_from_model(pos_coeff, net, cfg.num_timesteps, x_init, cfg.nz, rng)
 
     return sample
 

@@ -22,6 +22,7 @@ import torch.distributed as dist
 
 from .._device import resolve_device
 from ..parallel.mesh import all_gather_
+from ..trace import span
 
 
 def var_func_vp(t: np.ndarray, beta_min: float, beta_max: float) -> np.ndarray:
@@ -292,8 +293,10 @@ def sample_from_model(
     for i in range(n_time - 1, -1, -1):
         t = torch.full((batch,), i, dtype=torch.int64, device=x.device)
         z = torch.randn((batch, nz), generator=rng, device=x.device, dtype=x.dtype)
-        x_0 = generator(x, t, z)
-        x = sample_posterior(coefficients, x_0, x, t, rng)
+        with span("ddgan.sample.G", x.device):
+            x_0 = generator(x, t, z)
+        with span("ddgan.sample.posterior", x.device):
+            x = sample_posterior(coefficients, x_0, x, t, rng)
     return x
 
 

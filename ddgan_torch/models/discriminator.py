@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from ..nn.blocks import _rescale
 from ..nn.layers import ConvLayer, Dense, get_timestep_embedding
 from ..ops import resample
+from ..trace import span
 from .ncsnpp import resolve_compute_dtype
 from .registry import register_model
 
@@ -121,17 +122,18 @@ class _Discriminator(nn.Module):
                 m.init_weights(generator)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, x_t: torch.Tensor) -> torch.Tensor:
-        t_embed = leaky_relu_02(self.t_embed(t))
-        # cast before the concat, as the JAX package (bit-identical to
-        # concat-then-cast, half the bytes)
-        if self.dtype is not None:
-            x, x_t = x.to(self.dtype), x_t.to(self.dtype)
-        h = self.start_conv(torch.cat([x, x_t], dim=1))
-        for i in range(1, self.n_blocks + 1):
-            h = getattr(self, f"conv{i}")(h, t_embed)
-        out = leaky_relu_02(self.final_conv(minibatch_stddev(h)))
-        # head in float32 (big spatial sums deserve full precision)
-        return self.end_linear(out.float().sum((2, 3)))
+        with span("ddgan.D", x.device):
+            t_embed = leaky_relu_02(self.t_embed(t))
+            # cast before the concat, as the JAX package (bit-identical to
+            # concat-then-cast, half the bytes)
+            if self.dtype is not None:
+                x, x_t = x.to(self.dtype), x_t.to(self.dtype)
+            h = self.start_conv(torch.cat([x, x_t], dim=1))
+            for i in range(1, self.n_blocks + 1):
+                h = getattr(self, f"conv{i}")(h, t_embed)
+            out = leaky_relu_02(self.final_conv(minibatch_stddev(h)))
+            # head in float32 (big spatial sums deserve full precision)
+            return self.end_linear(out.float().sum((2, 3)))
 
 
 @register_model(name="discriminator_small")

@@ -50,6 +50,7 @@ import torch.utils.checkpoint
 from ..nn import blocks
 from ..nn.layers import (Conv3x3, ConvOutputs, Dense, Linear, PixelNorm, default_init,
                          get_timestep_embedding, saving_conv_outputs)
+from ..trace import span
 from .registry import register_model
 
 RESBLOCK_TYPES = ("ddpm", "biggan", "biggan_oneadagn")
@@ -194,6 +195,8 @@ class NCSNpp(nn.Module):
         self.conditional, self.centered, self.not_use_tanh = conditional, centered, not_use_tanh
         num_resolutions = len(self.ch_mult)
         all_resolutions = [image_size // (2**i) for i in range(num_resolutions)]
+        # the span of each level's way down and up (`trace`), by its input side
+        self._level_spans = [(f"ddgan.G.down{r}", f"ddgan.G.up{r}") for r in all_resolutions]
         channels = num_channels
         fir_kernel = tuple(fir_kernel)
 
@@ -370,87 +373,98 @@ class NCSNpp(nn.Module):
 
     def forward(self, x: torch.Tensor, time_cond: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         modules = self.all_modules
-        zemb = self.z_transform(z)
+        dev = x.device
         m_idx = 0
-        if self.embedding_type == "fourier":
-            temb = modules[m_idx](torch.log(time_cond.to(torch.float32)))
-            m_idx += 1
-        else:
-            temb = get_timestep_embedding(time_cond, self.nf)
-        if self.conditional:
-            temb = modules[m_idx](temb)
-            temb = modules[m_idx + 1](F.silu(temb))
-            m_idx += 2
-        else:
-            temb = None
+        with span("ddgan.G.embed", dev):
+            zemb = self.z_transform(z)
+            if self.embedding_type == "fourier":
+                temb = modules[m_idx](torch.log(time_cond.to(torch.float32)))
+                m_idx += 1
+            else:
+                temb = get_timestep_embedding(time_cond, self.nf)
+            if self.conditional:
+                temb = modules[m_idx](temb)
+                temb = modules[m_idx + 1](F.silu(temb))
+                m_idx += 2
+            else:
+                temb = None
 
-        if not self.centered:
-            x = 2 * x - 1.0  # input in [0, 1]
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        input_pyramid = x
-        hs = [modules[m_idx](x)]
-        m_idx += 1
         num_resolutions = len(self.ch_mult)
         for i_level in range(num_resolutions):
-            for _ in range(self.num_res_blocks):
-                h = self._resblock(modules[m_idx], hs[-1], temb, zemb)
-                m_idx += 1
-                # resolution test on the W axis, as the JAX package's NHWC shape[2]
-                if h.shape[3] in self.attn_resolutions:
-                    h = modules[m_idx](h)
+            with span(self._level_spans[i_level][0], dev):
+                if i_level == 0:
+                    if not self.centered:
+                        x = 2 * x - 1.0  # input in [0, 1]
+                    if self.dtype is not None:
+                        x = x.to(self.dtype)
+                    input_pyramid = x
+                    hs = [modules[m_idx](x)]
                     m_idx += 1
-                hs.append(h)
-            if i_level != num_resolutions - 1:
-                h = self._block(modules[m_idx], hs[-1], temb, zemb)
-                m_idx += 1
-                if self.progressive_input == "input_skip":
-                    input_pyramid = self.pyramid_downsample(input_pyramid)
-                    h = modules[m_idx](input_pyramid, h)
+                for _ in range(self.num_res_blocks):
+                    h = self._resblock(modules[m_idx], hs[-1], temb, zemb)
                     m_idx += 1
-                elif self.progressive_input == "residual":
-                    input_pyramid = modules[m_idx](input_pyramid)
+                    # resolution test on the W axis, as the JAX package's NHWC shape[2]
+                    if h.shape[3] in self.attn_resolutions:
+                        with span("ddgan.G.attn", dev):
+                            h = modules[m_idx](h)
+                        m_idx += 1
+                    hs.append(h)
+                if i_level != num_resolutions - 1:
+                    h = self._block(modules[m_idx], hs[-1], temb, zemb)
                     m_idx += 1
-                    input_pyramid = self._skip_sum(input_pyramid, h)
-                    h = input_pyramid
-                hs.append(h)
+                    if self.progressive_input == "input_skip":
+                        input_pyramid = self.pyramid_downsample(input_pyramid)
+                        h = modules[m_idx](input_pyramid, h)
+                        m_idx += 1
+                    elif self.progressive_input == "residual":
+                        input_pyramid = modules[m_idx](input_pyramid)
+                        m_idx += 1
+                        input_pyramid = self._skip_sum(input_pyramid, h)
+                        h = input_pyramid
+                    hs.append(h)
 
-        h = hs[-1]
-        h = self._resblock(modules[m_idx], h, temb, zemb)
-        h = modules[m_idx + 1](h)
-        h = self._resblock(modules[m_idx + 2], h, temb, zemb)
-        m_idx += 3
+        with span("ddgan.G.mid", dev):
+            h = hs[-1]
+            h = self._resblock(modules[m_idx], h, temb, zemb)
+            with span("ddgan.G.attn", dev):
+                h = modules[m_idx + 1](h)
+            h = self._resblock(modules[m_idx + 2], h, temb, zemb)
+            m_idx += 3
 
         pyramid = None
         for i_level in reversed(range(num_resolutions)):
-            for _ in range(self.num_res_blocks + 1):
-                h = self._resblock(modules[m_idx], torch.cat([h, hs.pop()], dim=1), temb, zemb)
-                m_idx += 1
-            if h.shape[3] in self.attn_resolutions:
-                h = modules[m_idx](h)
-                m_idx += 1
-            if self.progressive != "none":
-                if i_level == num_resolutions - 1 or self.progressive == "output_skip":
-                    pyramid_h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
-                    m_idx += 2
-                    if pyramid is None:
-                        pyramid = pyramid_h
-                    else:  # output_skip below the top level
-                        pyramid = self.pyramid_upsample(pyramid) + pyramid_h
-                else:  # residual below the top level
-                    pyramid = self._skip_sum(modules[m_idx](pyramid), h)
+            with span(self._level_spans[i_level][1], dev):
+                for _ in range(self.num_res_blocks + 1):
+                    h = self._resblock(modules[m_idx], torch.cat([h, hs.pop()], dim=1), temb,
+                                       zemb)
                     m_idx += 1
-                    h = pyramid
-            if i_level != 0:
-                h = self._block(modules[m_idx], h, temb, zemb)
-                m_idx += 1
+                if h.shape[3] in self.attn_resolutions:
+                    with span("ddgan.G.attn", dev):
+                        h = modules[m_idx](h)
+                    m_idx += 1
+                if self.progressive != "none":
+                    if i_level == num_resolutions - 1 or self.progressive == "output_skip":
+                        pyramid_h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
+                        m_idx += 2
+                        if pyramid is None:
+                            pyramid = pyramid_h
+                        else:  # output_skip below the top level
+                            pyramid = self.pyramid_upsample(pyramid) + pyramid_h
+                    else:  # residual below the top level
+                        pyramid = self._skip_sum(modules[m_idx](pyramid), h)
+                        m_idx += 1
+                        h = pyramid
+                if i_level != 0:
+                    h = self._block(modules[m_idx], h, temb, zemb)
+                    m_idx += 1
         assert not hs
 
-        if self.progressive == "output_skip":
-            h = pyramid
-        else:
-            h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
-            m_idx += 2
-        assert m_idx == len(modules)
-        h = h.to(torch.float32)
-        return h if self.not_use_tanh else torch.tanh(h)
+        with span("ddgan.G.out", dev):
+            if self.progressive == "output_skip":
+                h = pyramid
+            else:
+                h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
+                m_idx += 2
+            assert m_idx == len(modules)
+            h = h.to(torch.float32)
+            return h if self.not_use_tanh else torch.tanh(h)

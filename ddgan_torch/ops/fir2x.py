@@ -32,6 +32,7 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import trace
 from . import _nvcc
 from .upfirdn2d import upfirdn2d_ref
 
@@ -45,6 +46,8 @@ LAUNCHES = {"down2x": 0, "up2x": 0}
 # such a VJP (R1's grad-of-grad).
 ROLES = ("forward", "backward", "second_order")
 CALLS = {name: dict.fromkeys(ROLES, 0) for name in LAUNCHES}
+# the same calls as counters of the innermost open span (`trace.count`)
+COUNTERS = {name: {role: f"fir2x.{name}.{role}" for role in ROLES} for name in LAUNCHES}
 
 _lib = None
 
@@ -194,7 +197,9 @@ def _resample(name: str, x: torch.Tensor, k1d: tuple, order: int) -> torch.Tenso
         y = _launch(0, x, k1d, (x.shape[2] // 2, x.shape[3] // 2), name)
     else:
         y = _launch(1, x, k1d, (x.shape[2] * 2, x.shape[3] * 2), name)
-    CALLS[name][ROLES[min(order, 2)]] += 1
+    role = ROLES[min(order, 2)]
+    CALLS[name][role] += 1
+    trace.count(COUNTERS[name][role])
     return y
 
 

@@ -43,6 +43,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from . import _nvcc
 
 C_OUT = 64
@@ -55,6 +56,8 @@ LAUNCHES = {"pair_conv3x3": 0}
 # tensor each is a launch), "dx_library" is a dx that the gate sends to
 # the library conv.
 CALLS = {"forward": 0, "dx": 0, "dx_library": 0}
+# the same calls as counters of the innermost open span (`trace.count`)
+COUNTERS = {role: f"pair_conv3x3.{role}" for role in CALLS}
 
 _lib = None
 
@@ -212,6 +215,7 @@ class _PairConv3x3(torch.autograd.Function):
     def forward(ctx, x, w, b, role, flip):
         y = _conv(x, w, b, flip)
         CALLS[role] += 1
+        trace.count(COUNTERS[role])
         ctx.flip = flip
         ctx.save_for_backward(x, w)
         return y
@@ -232,6 +236,7 @@ class _PairConv3x3(torch.autograd.Function):
                 w_vjp = w if ctx.flip else flipped(w)
                 dx = F.conv2d(g, w_vjp.to(g.dtype), padding=1)
                 CALLS["dx_library"] += 1
+                trace.count(COUNTERS["dx_library"])
         if ctx.needs_input_grad[1]:
             dw = torch.nn.grad.conv2d_weight(
                 x.to(torch.bfloat16), w_conv.shape, g.to(torch.bfloat16), padding=1

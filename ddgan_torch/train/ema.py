@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..trace import span
+
 
 def ema_init(module: torch.nn.Module) -> dict[str, torch.Tensor]:
     """A detached copy of the module's parameters. (ema.py:37-43)"""
@@ -19,7 +21,8 @@ def ema_init(module: torch.nn.Module) -> dict[str, torch.Tensor]:
 @torch.no_grad()
 def ema_update(ema: dict[str, torch.Tensor], module: torch.nn.Module, decay: float) -> None:
     """One EMA step in place: decay * ema + (1 - decay) * param. (ema.py:45-55)"""
-    shadow = [ema[k] for k, _ in module.named_parameters()]
-    params = [p for _, p in module.named_parameters()]
-    torch._foreach_mul_(shadow, decay)
-    torch._foreach_add_(shadow, params, alpha=1.0 - decay)
+    with span("ddgan.ema", next(iter(ema.values())).device if ema else None):
+        shadow = [ema[k] for k, _ in module.named_parameters()]
+        params = [p for _, p in module.named_parameters()]
+        torch._foreach_mul_(shadow, decay)
+        torch._foreach_add_(shadow, params, alpha=1.0 - decay)

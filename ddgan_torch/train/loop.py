@@ -24,7 +24,13 @@ epoch's end the epoch-end swarm update on the epoch's losses.
 
 `limited_iter` truncates epochs (ddgan.py:414-424). `profile_dir` records a
 `torch.profiler` trace of the first epoch into that directory, the
-counterpart of the JAX package's `jax.profiler` trace. The seed draws the
+counterpart of the JAX package's `jax.profiler` trace. The profiler turns
+on the port's own spans (`ddgan_torch.trace`: the step's phases, the
+optimizers, the EMA, G's levels, D, and `ddgan.loop.batch`, the wait on the
+loader's next batch and the copy it enqueues), which land in that trace;
+after the epoch the loop prints one line per span, with its calls, host ms
+and device-stream ms a step and its counters (the FIR and gated-conv calls
+by role), then clears the recorder. The seed draws the
 initial weights from a CPU `torch.Generator`, then the seed of the
 generator on the device that carries every step's draws and dropout masks,
 as the JAX package splits its key, and for PSO the seed of the generator of
@@ -50,6 +56,7 @@ commit point. Without a group the loop runs as on one GPU, draw for draw.
 
 from __future__ import annotations
 
+import itertools
 import json
 import time
 from pathlib import Path
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from .._device import resolve_device
 from ..data import DataLoader, make_dataset
 from ..diffusion import DiffusionCoefficients, PosteriorCoefficients
@@ -180,6 +188,20 @@ def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _device_batches(loader, device: torch.device, limited: int | None):
+    """The loader's batches on `device`, each wait on the loader and the
+    copy it enqueues in a `ddgan.loop.batch` span; `limited` batches at
+    most (the batch after them is fetched, then dropped)."""
+    batches = iter(loader)
+    for iteration in itertools.count():
+        with trace.span("ddgan.loop.batch", device):
+            item = next(batches, None)
+            if item is None or (limited is not None and iteration >= limited):
+                return
+            real = _to_device(item[0], device)
+        yield real
+
+
 def _start_profile(profile_dir, device: torch.device):
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
@@ -294,10 +316,7 @@ def train(args, dataset=None, device: str | torch.device | None = None
 
         loss_values_D, loss_values_G = [], []
         epoch_t0 = time.perf_counter()
-        for iteration, (x, _) in enumerate(loader):
-            if limited is not None and iteration >= limited:
-                break
-            real = _to_device(x, device)
+        for iteration, real in enumerate(_device_batches(loader, device, limited)):
             d_only = d_per_g > 1 and (iteration % d_per_g) != d_per_g - 1
             metrics = (d_only_step if d_only else step_fn)(state, real, rng, lr_g, lr_d,
                                                            **call_kw)
@@ -327,6 +346,9 @@ def train(args, dataset=None, device: str | torch.device | None = None
             swarm_s = time.perf_counter() - swarm_t0
         if prof is not None:
             prof.stop()
+            for line in trace.lines(len(loss_values_D)):
+                print(line)
+            trace.reset()
 
         save_t0 = time.perf_counter()
         avg_d = float(np.mean(loss_values_D)) if loss_values_D else float("inf")

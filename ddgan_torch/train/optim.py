@@ -32,6 +32,7 @@ from typing import Iterable
 import torch
 
 from ..parallel.mesh import mean_across_ranks_
+from ..trace import span
 
 
 def clip_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -64,15 +65,16 @@ class ClippedAdam:
             p.grad = None
 
     def step(self, lr: float) -> None:
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.group is not None:
-            mean_across_ranks_([p.grad for p in self.params], self.group)
-        if self.grad_clip_norm is not None and self.grad_clip_norm > 0:
-            clip_by_global_norm_([p.grad for p in self.params], self.grad_clip_norm)
-        self.adam.param_groups[0]["lr"] = float(lr)
-        self.adam.step()
+        with span("ddgan.optim", self.params[0].device):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.group is not None:
+                mean_across_ranks_([p.grad for p in self.params], self.group)
+            if self.grad_clip_norm is not None and self.grad_clip_norm > 0:
+                clip_by_global_norm_([p.grad for p in self.params], self.grad_clip_norm)
+            self.adam.param_groups[0]["lr"] = float(lr)
+            self.adam.step()
 
     def state_dict(self) -> dict:
         """The inner `torch.optim.Adam`'s state dict (the reference's format)."""

@@ -49,6 +49,7 @@ from ..diffusion.schedules import (
     q_sample_pairs_with_noise,
     sample_posterior_with_noise,
 )
+from ..trace import span
 from .ema import ema_update
 from .state import TrainState
 
@@ -122,54 +123,65 @@ def make_train_step(
 
     def step(state: TrainState, real: torch.Tensor, rng: torch.Generator | None,
              lr_g: float, lr_d: float, draws: StepDraws | None = None) -> StepMetrics:
+        dev = real.device
+        with span("ddgan.step", dev):
+            return _step(state, real, rng, lr_g, lr_d, draws, dev)
+
+    def _step(state, real, rng, lr_g, lr_d, draws, dev) -> StepMetrics:
         gen, disc = state.gen, state.disc
         gen.train()
         disc.train()
         gen.set_dropout_generator(rng)
-        d = draws if draws is not None else draw_step(real, num_timesteps, nz, rng)
+        with span("ddgan.step.draws", dev):
+            d = draws if draws is not None else draw_step(real, num_timesteps, nz, rng)
         b = real.shape[0]
         apply_r1 = lazy_reg is None or state.step % lazy_reg == 0
         use_shared = r1_shared == "yes" or (r1_shared == "auto" and real.shape[2] >= 256)
 
         # ---------------- D update ----------------
-        x_t, x_tp1 = q_sample_pairs_with_noise(coeff, real, d.t, d.noise_q, d.noise_next)
-        with torch.no_grad():
-            x_0_pred = gen(x_tp1, d.t, d.z)
-            x_pos = sample_posterior_with_noise(pos_coeff, x_0_pred, x_tp1, d.t, d.noise_post)
+        with span("ddgan.step.d_update", dev):
+            x_t, x_tp1 = q_sample_pairs_with_noise(coeff, real, d.t, d.noise_q, d.noise_next)
+            with torch.no_grad():
+                x_0_pred = gen(x_tp1, d.t, d.z)
+                x_pos = sample_posterior_with_noise(pos_coeff, x_0_pred, x_tp1, d.t,
+                                                    d.noise_post)
 
-        state.opt_D.zero_grad()
-        errD_fake = F.softplus(apply_D(disc, x_pos, d.t, x_tp1)).mean()
-        if apply_r1 and use_shared:
-            x_t = x_t.detach().requires_grad_(True)
-        d_real = apply_D(disc, x_t, d.t, x_tp1)
-        errD_real = F.softplus(-d_real).mean()
-        penalty = torch.zeros((), device=real.device)
-        if apply_r1:
-            if use_shared:
-                x_in, out = x_t, d_real
-            else:
-                x_in = x_t.detach().requires_grad_(True)
-                out = apply_D(disc, x_in, d.t, x_tp1)
-            (grad_real,) = torch.autograd.grad(out.sum(), x_in, create_graph=True)
-            gp = grad_real.float().reshape(b, -1).square().sum(1).mean()
-            penalty = r1_gamma / 2.0 * gp
-        (errD_real + errD_fake + penalty).backward(inputs=list(disc.parameters()))
+            state.opt_D.zero_grad()
+            errD_fake = F.softplus(apply_D(disc, x_pos, d.t, x_tp1)).mean()
+            if apply_r1 and use_shared:
+                x_t = x_t.detach().requires_grad_(True)
+            d_real = apply_D(disc, x_t, d.t, x_tp1)
+            errD_real = F.softplus(-d_real).mean()
+            penalty = torch.zeros((), device=dev)
+            if apply_r1:
+                with span("ddgan.step.r1", dev):
+                    if use_shared:
+                        x_in, out = x_t, d_real
+                    else:
+                        x_in = x_t.detach().requires_grad_(True)
+                        out = apply_D(disc, x_in, d.t, x_tp1)
+                    (grad_real,) = torch.autograd.grad(out.sum(), x_in, create_graph=True)
+                    gp = grad_real.float().reshape(b, -1).square().sum(1).mean()
+                    penalty = r1_gamma / 2.0 * gp
+            (errD_real + errD_fake + penalty).backward(inputs=list(disc.parameters()))
         state.opt_D.step(lr_d)
 
         # ---------------- G update (fresh draws, updated D) ----------------
         if update_g:
-            _, x_tp1_g = q_sample_pairs_with_noise(coeff, real, d.t_g, d.noise_q_g,
-                                                   d.noise_next_g)
-            state.opt_G.zero_grad()
-            x0 = gen(x_tp1_g, d.t_g, d.z_g)
-            x_pos_g = sample_posterior_with_noise(pos_coeff, x0, x_tp1_g, d.t_g, d.noise_post_g)
-            errG = F.softplus(-apply_D(disc, x_pos_g, d.t_g, x_tp1_g)).mean()
-            errG.backward(inputs=list(gen.parameters()))
+            with span("ddgan.step.g_update", dev):
+                _, x_tp1_g = q_sample_pairs_with_noise(coeff, real, d.t_g, d.noise_q_g,
+                                                       d.noise_next_g)
+                state.opt_G.zero_grad()
+                x0 = gen(x_tp1_g, d.t_g, d.z_g)
+                x_pos_g = sample_posterior_with_noise(pos_coeff, x0, x_tp1_g, d.t_g,
+                                                      d.noise_post_g)
+                errG = F.softplus(-apply_D(disc, x_pos_g, d.t_g, x_tp1_g)).mean()
+                errG.backward(inputs=list(gen.parameters()))
             state.opt_G.step(lr_g)
             if use_ema:
                 ema_update(state.ema_G, gen, ema_decay)
         else:
-            errG = torch.zeros((), device=real.device)
+            errG = torch.zeros((), device=dev)
 
         state.step += 1
         return StepMetrics(

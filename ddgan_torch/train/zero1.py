@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import all_gather_, reduce_scatter_
+from ..trace import span
 
 
 class Zero1Adam:
@@ -128,7 +129,8 @@ class Zero1Adam:
         self.param_groups[0]["lr"] = float(lr)
 
     def step(self, lr: float) -> None:
-        self.apply_(self.update(), lr)
+        with span("ddgan.optim", self.params[0].device):
+            self.apply_(self.update(), lr)
 
     def state_dict(self) -> dict:
         """The reference's `torch.optim.Adam` state dict of the full moments

@@ -547,3 +547,29 @@ def test_profile_dir_traces_the_first_epoch(tmp_path, monkeypatch):
     traces = list((tmp_path / "prof").glob("*.pt.trace.json"))
     assert len(traces) == 1
     assert '"traceEvents"' in traces[0].read_text()
+
+
+def test_profile_dir_prints_the_spans_of_the_profiled_epoch(tmp_path, monkeypatch, capsys):
+    """After the profiled epoch (2 steps, the first with R1) the loop prints
+    one line per span of the port, a step, with its counters, and clears the
+    recorder; the spans are in the epoch's trace too."""
+    from ddgan_torch import trace
+
+    monkeypatch.chdir(tmp_path)
+    cfg = Config.from_dict({**TINY, "num_epoch": 1, "exp": "prof",
+                            "profile_dir": str(tmp_path / "prof")})
+    loop.train(cfg, device=CPU)
+    lines = {ln.split(":")[0][len("span "):]: ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("span ")}
+    assert {"ddgan.loop.batch", "ddgan.step", "ddgan.step.draws", "ddgan.step.d_update",
+            "ddgan.step.r1", "ddgan.step.g_update", "ddgan.optim", "ddgan.ema", "ddgan.D",
+            "ddgan.G.embed", "ddgan.G.down8", "ddgan.G.mid", "ddgan.G.up8",
+            "ddgan.G.out"} <= set(lines)
+    assert lines["ddgan.step"].startswith("span ddgan.step: 1.00 calls, host ")
+    assert "ms, device - ms a step (in -)" in lines["ddgan.step"]
+    assert lines["ddgan.step.r1"].startswith("span ddgan.step.r1: 0.50 calls")
+    assert lines["ddgan.optim"].startswith("span ddgan.optim: 2.00 calls")
+    assert "; fir2x.down2x.forward " in lines["ddgan.D"]
+    assert trace.summary() == {}
+    (path,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    assert '"name": "ddgan.step.d_update"' in path.read_text()

@@ -55,6 +55,7 @@ from .._device import resolve_device
 from ..compat import load_netg_ckpt, load_netg_pth
 from ..config import Config
 from ..diffusion import PosteriorCoefficients, sample_from_model
+from ..diffusion.graphed import GraphedForward
 from ..models import NCSNpp
 from ..trace import span
 from ..utils import save_image, to_range_0_1
@@ -126,16 +127,22 @@ def load_generator(exp_path: Path, cfg: Config, epoch_id: int, device: torch.dev
 
 def make_sampler(cfg: Config, net: NCSNpp, batch: int, device: torch.device,
                  rng: torch.Generator) -> Callable[[], torch.Tensor]:
-    """() -> one batch of samples in [-1, 1], (batch, C, H, W) on `device`."""
+    """() -> one batch of samples in [-1, 1], (batch, C, H, W) on `device`.
+
+    On a CUDA device G's forward in eval mode is captured as a CUDA graph at
+    the first call and replayed at every later one (`GraphedForward`): the
+    weights are read in place at each call, so load them into `net`'s own
+    tensors (`load_state_dict`, `copy_`), never by rebinding a parameter."""
     pos_coeff = PosteriorCoefficients.create(
         cfg.num_timesteps, cfg.beta_min, cfg.beta_max, cfg.use_geometric, device=device
     )
     shape = (batch, cfg.num_channels, cfg.image_size, cfg.image_size)
+    g = GraphedForward(net)
 
     def sample() -> torch.Tensor:
         with span("ddgan.sample", device):
             x_init = torch.randn(shape, generator=rng, device=device)
-            return sample_from_model(pos_coeff, net, cfg.num_timesteps, x_init, cfg.nz, rng)
+            return sample_from_model(pos_coeff, g, cfg.num_timesteps, x_init, cfg.nz, rng)
 
     return sample
 

@@ -14,7 +14,9 @@ the semantics of the reference CUDA op's golden CPU model
 
 Done as one depthwise `F.conv2d` over the zero-stuffed, padded input with
 the flipped kernel and stride `down`. Autograd differentiates it to any
-order.
+order. A kernel given on the host is copied to a CUDA device once and kept
+(`_kernel_on`): a forward copies nothing from the host, so it can be
+captured in a CUDA graph.
 """
 
 from __future__ import annotations
@@ -29,6 +31,24 @@ def _as_pair(v) -> tuple[int, int]:
             return (int(v[0]), int(v[0]))
         return (int(v[0]), int(v[1]))
     return (int(v), int(v))
+
+
+# host FIR kernels already copied to a device, by content, device and dtype
+_ON_DEVICE: dict = {}
+
+
+def _kernel_on(kernel, x: torch.Tensor) -> torch.Tensor:
+    """`kernel` as a tensor on x's device in x's dtype. A host kernel (an
+    array or a CPU tensor) bound for another device is copied there on its
+    first use only; the copy is shared, and read only."""
+    k = torch.as_tensor(kernel)
+    if x.device.type == "cpu" or k.device.type != "cpu":
+        return k.to(device=x.device, dtype=x.dtype)
+    key = (k.dtype, tuple(k.shape), k.numpy().tobytes(), x.device, x.dtype)
+    out = _ON_DEVICE.get(key)
+    if out is None:
+        out = _ON_DEVICE[key] = k.to(device=x.device, dtype=x.dtype)
+    return out
 
 
 def upfirdn2d_ref(x: torch.Tensor, kernel, up=1, down=1, pad=(0, 0)) -> torch.Tensor:
@@ -54,7 +74,7 @@ def upfirdn2d_ref(x: torch.Tensor, kernel, up=1, down=1, pad=(0, 0)) -> torch.Te
         pad_x0, pad_x1, pad_y0, pad_y1 = (int(p) for p in pad)
 
     n, c, h, w = x.shape
-    kernel = torch.as_tensor(kernel).to(device=x.device, dtype=x.dtype)
+    kernel = _kernel_on(kernel, x)
     kh, kw = kernel.shape
 
     if up_y > 1 or up_x > 1:

@@ -29,6 +29,14 @@ pair_conv3x3 VJP against autograd through its plain version (dx within 1
 bf16 ulp, dW bf16-rounded on both sides, db against float64), and one
 bf16 train step of a small 256x256 model whose gated convs and their dx
 launch the kernel.
+
+The sampler's G forward as a captured CUDA graph (`diffusion/graphed.py`):
+`make_sampler` calls against `sample_from_model` on the bare net, bit for
+bit, images and generator states, at small 32² and 256² recipes' shapes;
+an in-place weight load after the capture; the eager paths (train mode,
+grad, a profiler before the first capture); the graph's kernels in the
+profiler, by name and count as an eager call's; every generator option
+family captured and replayed.
 """
 
 import numpy as np
@@ -460,3 +468,250 @@ def test_bf16_train_step_at_256_launches_the_kernels(cuda_device):
     assert pair_conv.LAUNCHES["pair_conv3x3"] == pair_conv.CALLS["forward"] + pair_conv.CALLS["dx"]
     assert fir2x.CALLS["down2x"]["second_order"] == 12  # six D blocks, two down2x each
     assert sum(fir2x.LAUNCHES.values()) == sum(sum(c.values()) for c in fir2x.CALLS.values())
+
+
+# --------------------------------------------------------------------------
+# the sampler's G forward as a captured CUDA graph (`diffusion/graphed.py`)
+def _sampler_net(case: str, device):
+    """A small NCSN++ shaped like a recipe, with non-trivial weights, in eval
+    mode: "cifar" (32², the residual input pyramid of FIR convs, attention,
+    T=4) or "celeba" (256², nf 64, the skip pyramids: K2's gated convs and
+    K1 at 256², T=2)."""
+    from ddgan_torch.config import Config
+    from ddgan_torch.models import NCSNpp
+    from ddgan_torch.utils import randomize_parameters_
+
+    common = dict(num_channels=3, num_res_blocks=1, nz=16, z_emb_dim=32, n_mlp=2,
+                  t_emb_dim=32, compute_dtype="bfloat16")
+    if case == "cifar":
+        cfg = Config(image_size=32, num_channels_dae=32, ch_mult=[1, 2, 2],
+                     attn_resolutions=[16], num_timesteps=4, dropout=0.1, **common)
+        batch = 8
+    else:
+        cfg = Config(image_size=256, num_channels_dae=64, ch_mult=[1, 1, 2], attn_resolutions=[],
+                     num_timesteps=2, dropout=0.0, progressive="output_skip",
+                     progressive_input="input_skip", progressive_combine="sum", **common)
+        batch = 2
+    net = randomize_parameters_(NCSNpp.from_config(cfg), 3).to(device).eval()
+    return cfg, net, batch
+
+
+def _eager_call(cfg, net, batch, device, rng):
+    """What `make_sampler`'s call computes, with the bare net as G."""
+    from ddgan_torch.diffusion import PosteriorCoefficients, sample_from_model
+
+    pos = PosteriorCoefficients.create(cfg.num_timesteps, cfg.beta_min, cfg.beta_max,
+                                       cfg.use_geometric, device=device)
+    shape = (batch, cfg.num_channels, cfg.image_size, cfg.image_size)
+    x_init = torch.randn(shape, generator=rng, device=device)
+    return sample_from_model(pos, net, cfg.num_timesteps, x_init, cfg.nz, rng)
+
+
+def _tallies():
+    return (dict(fir2x.LAUNCHES), {k: dict(v) for k, v in fir2x.CALLS.items()},
+            dict(pair_conv.LAUNCHES), dict(pair_conv.CALLS))
+
+
+def _tally_delta(before, after):
+    def sub(a, b):
+        return {k: sub(a[k], b[k]) if isinstance(a[k], dict) else a[k] - b[k] for k in a}
+    return tuple(sub(a, b) for a, b in zip(after, before))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cifar", "celeba"])
+def test_graphed_sampler_equals_eager_bit_for_bit(cuda_device, case):
+    """Three `make_sampler` calls (one capture, then replays only) against
+    `sample_from_model` on the bare net from the same generator state:
+    images and generator states equal bit for bit, and the hand kernels'
+    tallies advance by what an eager call's do."""
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.diffusion import graphed
+
+    cfg, net, batch = _sampler_net(case, cuda_device)
+    rng = torch.Generator(device=cuda_device).manual_seed(11)
+    sample = test_cli.make_sampler(cfg, net, batch, cuda_device, rng)
+    graphed.reset_counts()
+    for call in range(3):
+        ref_rng = _gen_at(cuda_device, rng.get_state())
+        before = _tallies()
+        got = sample().clone()
+        torch.cuda.synchronize()
+        mid = _tallies()
+        want = _eager_call(cfg, net, batch, cuda_device, ref_rng)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(want).all()) and float(want.std()) > 0.05
+        assert torch.equal(got, want), f"call {call}: max-abs {(got - want).abs().max().item()}"
+        assert torch.equal(rng.get_state(), ref_rng.get_state())
+        assert _tally_delta(before, mid) == _tally_delta(mid, _tallies())
+    steps = 3 * cfg.num_timesteps
+    assert graphed.CALLS == {"capture": 1, "replay": steps - 1, "eager": 0}
+    assert sum(fir2x.LAUNCHES.values()) > 0
+    if case == "celeba":
+        assert _tally_delta(before, mid)[2]["pair_conv3x3"] > 0
+
+
+@pytest.mark.cuda
+def test_graphed_sampler_reads_the_weights_in_place(cuda_device):
+    """A `load_state_dict` into the captured net's own tensors after the
+    capture shows, bit for bit, in the next call's images."""
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.diffusion import graphed
+    from ddgan_torch.utils import randomize_parameters_
+
+    cfg, net, batch = _sampler_net("celeba", cuda_device)
+    rng = torch.Generator(device=cuda_device).manual_seed(5)
+    sample = test_cli.make_sampler(cfg, net, batch, cuda_device, rng)
+    sample()
+    sample()
+    state = rng.get_state()
+    old = sample().clone()
+    with torch.no_grad():
+        net.load_state_dict(randomize_parameters_(net.__class__.from_config(cfg), 9).state_dict())
+    graphed.reset_counts()
+    rng.set_state(state)
+    got = sample().clone()
+    want = _eager_call(cfg, net, batch, cuda_device, _gen_at(cuda_device, state))
+    torch.cuda.synchronize()
+    assert graphed.CALLS == {"capture": 0, "replay": cfg.num_timesteps, "eager": 0}
+    assert not torch.equal(got, old)
+    assert torch.equal(got, want)
+
+
+def _gen_at(device, state):
+    g = torch.Generator(device=device)
+    g.set_state(state)
+    return g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("why", ["train_mode", "grad", "profiler"])
+def test_graphed_forward_stays_eager(cuda_device, why):
+    """A net in train mode, grad enabled, and a profiler recording before
+    the first capture take the eager path and capture nothing; once the
+    profiler has stopped, a call captures, and under the profiler again the
+    graph is replayed."""
+    from ddgan_torch.diffusion import graphed
+
+    cfg, net, batch = _sampler_net("cifar", cuda_device)
+    g = graphed.GraphedForward(net)
+    x = torch.randn((batch, 3, cfg.image_size, cfg.image_size), device=cuda_device)
+    t = torch.full((batch,), 2, dtype=torch.int64, device=cuda_device)
+    z = torch.randn((batch, cfg.nz), device=cuda_device)
+    with torch.no_grad():
+        want = net(x, t, z)
+    graphed.reset_counts()
+    if why == "train_mode":
+        net.train()
+        with torch.no_grad():
+            got = [g(x, t, z) for _ in range(2)]
+        net.eval()
+    elif why == "grad":
+        got = [g(x, t, z).detach() for _ in range(2)]
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            got = [g(x, t, z).clone() for _ in range(2)]
+    torch.cuda.synchronize()
+    assert graphed.CALLS == {"capture": 0, "replay": 0, "eager": 2} and not g.graphs
+    if why != "train_mode":  # dropout 0.1 draws in train mode
+        assert all(torch.equal(o, want) for o in got)
+    if why == "profiler":
+        with torch.no_grad():
+            first = g(x, t, z).clone()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                again = g(x, t, z).clone()
+        torch.cuda.synchronize()
+        assert graphed.CALLS == {"capture": 1, "replay": 1, "eager": 2}
+        assert torch.equal(first, want) and torch.equal(again, want)
+
+
+def _device_kernels(prof) -> dict:
+    """Kernels (not copies or fills) of a profiled slice, by name."""
+    from collections import Counter
+
+    return Counter(e.name for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.name.startswith(("Memcpy", "Memset")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cifar", "celeba"])
+def test_graphed_sampler_kernels_appear_in_the_profiler(cuda_device, case):
+    """A replayed call under the profiler shows the graph's kernels: the
+    same kernels, by name and count, as an eager call of the bare net, the
+    fir2x ones as many as `fir2x.LAUNCHES` advanced by, and a handful of
+    host launches in place of thousands."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddgan_torch.cli import test_cli
+    from ddgan_torch.diffusion import graphed
+
+    cfg, net, batch = _sampler_net(case, cuda_device)
+    rng = torch.Generator(device=cuda_device).manual_seed(2)
+    sample = test_cli.make_sampler(cfg, net, batch, cuda_device, rng)
+    sample()
+    torch.cuda.synchronize()
+    launches = {}
+    kernels = {}
+    for side in ("eager", "graph"):
+        graphed.reset_counts()
+        before = sum(fir2x.LAUNCHES.values())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            if side == "graph":
+                sample()
+            else:
+                _eager_call(cfg, net, batch, cuda_device, torch.Generator(device=cuda_device))
+            torch.cuda.synchronize()
+        kernels[side] = _device_kernels(prof)
+        launches[side] = sum(e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                                        "cuLaunchKernelEx", "cudaGraphLaunch")
+                             for e in prof.events())
+        fir = sum(n for name, n in kernels[side].items()
+                  if "down2x_kernel" in name or "up2x_kernel" in name)
+        assert fir == sum(fir2x.LAUNCHES.values()) - before > 0
+    assert graphed.CALLS == {"capture": 0, "replay": cfg.num_timesteps, "eager": 0}
+    assert kernels["graph"] == kernels["eager"]
+    assert launches["graph"] < 30 * cfg.num_timesteps < launches["eager"]
+
+
+@pytest.mark.cuda
+def test_graphed_forward_captures_every_generator_family(cuda_device):
+    """Each NCSN++ option family of `chip_smoke.FAMILIES` (FIR convs up and
+    down, both pyramids, DDPM blocks, naive resampling, Fourier embedding,
+    unconditional), tiny and in bf16: a capture, then two replays on new
+    inputs, each equal bit for bit to the bare net."""
+    import importlib.util
+    from pathlib import Path
+
+    from ddgan_torch.config import Config
+    from ddgan_torch.diffusion import graphed
+    from ddgan_torch.models import NCSNpp
+    from ddgan_torch.utils import randomize_parameters_
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    for name, family in sorted(smoke.FAMILIES.items()):
+        kw = dict(image_size=16, num_channels=3, num_channels_dae=16, ch_mult=[1, 2],
+                  num_res_blocks=1, attn_resolutions=[8], nz=8, z_emb_dim=16, n_mlp=1,
+                  t_emb_dim=16, dropout=0.1, compute_dtype="bfloat16")
+        cfg = Config(**{**kw, **family})
+        net = randomize_parameters_(NCSNpp.from_config(cfg), 4).to(cuda_device).eval()
+        g = graphed.GraphedForward(net)
+        graphed.reset_counts()
+        for i in range(3):
+            gen = torch.Generator(device=cuda_device).manual_seed(i)
+            x = torch.randn((2, 3, 16, 16), generator=gen, device=cuda_device)
+            t = torch.tensor([1, 3], device=cuda_device)  # t >= 1: Fourier takes log(t)
+            z = torch.randn((2, cfg.nz), generator=gen, device=cuda_device)
+            with torch.no_grad():
+                got = g(x, t, z).clone()
+                want = net(x, t, z)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(want).all()), name
+            assert torch.equal(got, want), f"{name}, call {i}"
+        assert graphed.CALLS == {"capture": 1, "replay": 2, "eager": 0}, name

@@ -103,6 +103,26 @@ def test_fused_conv_resample_matches_jax(kind):
     np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+def test_upfirdn2d_copies_a_host_kernel_to_a_device_once():
+    """A host kernel bound for another device than the CPU is copied there
+    on its first use and reused (a CUDA graph's capture may not copy from
+    pageable host memory); each content, device and dtype has its own copy,
+    and a CPU input takes the kernel as given."""
+    from ddgan_torch.ops import upfirdn2d
+
+    k = np.outer(FIR, FIR).astype(np.float32)
+    x = torch.empty((1, 2, 8, 8), device="meta")
+    first = upfirdn2d._kernel_on(k, x)
+    assert first.device.type == "meta" and first.shape == (4, 4)
+    assert upfirdn2d._kernel_on(k.copy(), x) is first
+    assert upfirdn2d._kernel_on(torch.from_numpy(k), x) is first
+    assert upfirdn2d._kernel_on(k * 2, x) is not first
+    assert upfirdn2d._kernel_on(k, x.to(torch.bfloat16)).dtype == torch.bfloat16
+    assert upfirdn2d_ref(x, k, down=2, pad=(1, 1)).shape == (1, 2, 4, 4)
+    on_cpu = upfirdn2d._kernel_on(k, torch.zeros(1))
+    assert on_cpu.device.type == "cpu" and torch.equal(on_cpu, torch.from_numpy(k))
+
+
 def test_setup_kernel_matches_jax():
     for k in ([1, 3, 3, 1], [1, 2, 3, 4], [[1, 2], [3, 4]]):
         np.testing.assert_allclose(resample.setup_kernel(k), jresample.setup_kernel(k), **TOL)

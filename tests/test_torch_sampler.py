@@ -25,7 +25,7 @@ from ddgan_tpu.models import NCSNpp as JNCSNpp
 from ddgan_tpu.train.checkpoint import save_netg
 
 from ddgan_torch.cli import test_cli
-from ddgan_torch.diffusion import schedules
+from ddgan_torch.diffusion import graphed, schedules
 from ddgan_torch.models import NCSNpp
 from ddgan_torch.utils import encode_png, randomize_parameters_, save_image
 
@@ -178,6 +178,40 @@ def test_sampler_draws_from_its_generator(tiny):
     a, b, c = run(1), run(1), run(2)
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert a.shape == (2, 3, 16, 16) and torch.isfinite(a).all()
+
+
+def test_make_sampler_on_cpu_calls_g_eagerly(tiny):
+    """On the CPU the sampler's graph wrapper calls G as it stands: the
+    images equal `sample_from_model` on the bare net from the same generator
+    state, and every call takes the eager path, capturing nothing."""
+    cfg, net, _, _ = tiny
+    coeff = schedules.PosteriorCoefficients.create(T, cfg.beta_min, cfg.beta_max, device=CPU)
+    rng = torch.Generator().manual_seed(3)
+    sample = test_cli.make_sampler(cfg, net, 2, torch.device(CPU), rng)
+    graphed.reset_counts()
+    for _ in range(2):
+        ref_rng = torch.Generator()
+        ref_rng.set_state(rng.get_state())
+        got = sample()
+        x_init = torch.randn((2, 3, 16, 16), generator=ref_rng)
+        want = schedules.sample_from_model(coeff, net, T, x_init, cfg.nz, ref_rng)
+        assert torch.equal(got, want) and torch.equal(rng.get_state(), ref_rng.get_state())
+    assert graphed.CALLS == {"replay": 0, "capture": 0, "eager": 2 * T}
+
+
+def test_graphed_forward_is_eager_off_cuda(tiny):
+    """The wrapper called directly, in and out of no_grad and in train
+    mode: G's own output, no graph kept."""
+    cfg, net, _, _ = tiny
+    g = graphed.GraphedForward(net)
+    x = torch.from_numpy(randn(1, 2, 3, 16, 16))
+    t = torch.tensor([0, 3])
+    z = torch.from_numpy(randn(2, 2, cfg.nz))
+    with torch.no_grad():
+        want = net(x, t, z)
+        assert torch.equal(g(x, t, z), want)
+    assert torch.equal(g(x, t, z).detach(), want)
+    assert not g.graphs
 
 
 def _experiment(tmp_path, tiny, batch_size=3):

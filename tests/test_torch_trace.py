@@ -165,8 +165,10 @@ def test_counters_add_up_span_by_span_to_the_global_calls(runs):
         for k, n in v["counters"].items():
             total[k] = total.get(k, 0) + n
     calls = runs["calls"]
-    assert total == {f"fir2x.{p}.{r}": n for p, roles in calls.items()
-                     for r, n in roles.items() if n}
+    # and the sampler's G calls by path: on the CPU every one is eager
+    assert total == {**{f"fir2x.{p}.{r}": n for p, roles in calls.items()
+                        for r, n in roles.items() if n}, "sampler.graph.eager": T}
+    assert s["ddgan.sample.G"]["counters"]["sampler.graph.eager"] == T
     # R1's first order in its own span; its second order in D's backward,
     # which the D update calls
     second = calls["down2x"]["second_order"]

@@ -35,10 +35,12 @@ replay. Rebinding a parameter to a new tensor does not; the sampler's
 callers load weights before `make_sampler`.
 
 Counts: the hand kernels' wrappers count launches and calls in Python
-(`fir2x.LAUNCHES` / `CALLS`, `pair_conv.LAUNCHES` / `CALLS`). A capture runs
-none of them, so what the capture added is taken back out, and every
-replay adds it again, with the matching `trace.count`s: the tallies keep
-counting kernels that ran. `CALLS` counts each call's path, and each path
+(`fir2x.LAUNCHES` / `CALLS`, `pair_conv.LAUNCHES` / `CALLS`), and a model
+may count its own steps, handing its tallies in by `register_tallies`
+(`models/ncsnpp.py`: the steps of G's pyramids). A capture runs none of
+them, so what the capture added is taken back out, and every replay adds
+it again, with the matching `trace.count`s: the tallies keep counting
+kernels and steps that ran. `CALLS` counts each call's path, and each path
 is the span counter `sampler.graph.<path>` too. G's level spans
 (`ddgan.G.*`) are recorded on eager calls only: a replay runs no Python of
 G.
@@ -59,19 +61,33 @@ CALLS = dict.fromkeys(PATHS, 0)
 COUNTERS = {path: f"sampler.graph.{path}" for path in PATHS}
 
 
+# functions that return more tallies, as `_tallies` does (`register_tallies`)
+_SOURCES: list = []
+
+
 def reset_counts() -> None:
     for path in PATHS:
         CALLS[path] = 0
 
 
+def register_tallies(source) -> None:
+    """Count what `source()` returns, (dict, key, span counter or None)
+    triples, as the hand kernels' tallies are: taken out of a capture and
+    added at each replay. For the counts that a model keeps in Python."""
+    _SOURCES.append(source)
+
+
 def _tallies() -> list:
-    """The hand kernels' tallies as (dict, key, span counter or None),
-    looked up anew on each use: a reset of their counts replaces dicts."""
+    """The hand kernels' and the registered tallies as (dict, key, span
+    counter or None), looked up anew on each use: a reset of the kernels'
+    counts replaces dicts."""
     out = [(fir2x.LAUNCHES, name, None) for name in fir2x.LAUNCHES]
     out += [(fir2x.CALLS[name], role, fir2x.COUNTERS[name][role])
             for name in fir2x.LAUNCHES for role in fir2x.ROLES]
     out += [(pair_conv.LAUNCHES, name, None) for name in pair_conv.LAUNCHES]
     out += [(pair_conv.CALLS, role, pair_conv.COUNTERS[role]) for role in pair_conv.CALLS]
+    for source in _SOURCES:
+        out += source()
     return out
 
 

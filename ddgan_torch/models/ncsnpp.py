@@ -31,6 +31,14 @@ With embedding_type fourier the time embedding is taken of log(t), as in
 the JAX package and the reference, so the row of a batch at t = 0 is not
 finite.
 
+Spans (`trace.span`, on only while a profiler records): `ddgan.G.embed`,
+each level's way down and up (`ddgan.G.down<side>`, `ddgan.G.up<side>`),
+`ddgan.G.mid`, `ddgan.G.attn` and `ddgan.G.out`; with the output pyramid
+each level's step of it (its head, up2x and sum) is `ddgan.G.skip_out`,
+with the input pyramid each transition's (down2x and combine)
+`ddgan.G.skip_in`, each counted in `SKIP_STEPS` and by the span counters
+`ncsnpp.skip_out` / `ncsnpp.skip_in`.
+
 In bf16, the 3x3 convs of the 128² and 256² levels with 64 output
 channels run the gated conv kernel (`ops/pair_conv.py`). In train mode the
 dropout masks come from the generator given to `set_dropout_generator`
@@ -47,10 +55,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from ..diffusion.graphed import register_tallies
 from ..nn import blocks
 from ..nn.layers import (Conv3x3, ConvOutputs, Dense, Linear, PixelNorm, default_init,
                          get_timestep_embedding, saving_conv_outputs)
-from ..trace import span
+from ..trace import count, span
 from .registry import register_model
 
 RESBLOCK_TYPES = ("ddpm", "biggan", "biggan_oneadagn")
@@ -63,6 +72,29 @@ COMBINE_METHODS = ("sum", "cat")
 def _check(name: str, value: str, allowed: tuple) -> None:
     if value not in allowed:
         raise ValueError(f"NCSNpp {name}={value!r} not recognized; expected one of {allowed}")
+
+
+# Steps of the output and input pyramids (`progressive` "output_skip",
+# `progressive_input` "input_skip") since the last reset, counted on every
+# device: a level's output head, up2x and sum; a transition's down2x and
+# combine. The same steps are the counters of the innermost open span
+# (`trace.count`), which lies in the spans `ddgan.G.skip_out` / `.skip_in`.
+# A sampler's graph replays count them too (`graphed.register_tallies`).
+SKIP_STEPS = {"skip_out": 0, "skip_in": 0}
+COUNTERS = {name: f"ncsnpp.{name}" for name in SKIP_STEPS}
+
+
+def reset_skip_counts() -> None:
+    for name in SKIP_STEPS:
+        SKIP_STEPS[name] = 0
+
+
+def _skip_step(name: str) -> None:
+    SKIP_STEPS[name] += 1
+    count(COUNTERS[name])
+
+
+register_tallies(lambda: [(SKIP_STEPS, name, COUNTERS[name]) for name in SKIP_STEPS])
 
 
 REMAT_POLICIES = {"full": "full", "": "full", "save-convs": "save-convs",
@@ -413,8 +445,10 @@ class NCSNpp(nn.Module):
                     h = self._block(modules[m_idx], hs[-1], temb, zemb)
                     m_idx += 1
                     if self.progressive_input == "input_skip":
-                        input_pyramid = self.pyramid_downsample(input_pyramid)
-                        h = modules[m_idx](input_pyramid, h)
+                        with span("ddgan.G.skip_in", dev):
+                            input_pyramid = self.pyramid_downsample(input_pyramid)
+                            h = modules[m_idx](input_pyramid, h)
+                            _skip_step("skip_in")
                         m_idx += 1
                     elif self.progressive_input == "residual":
                         input_pyramid = modules[m_idx](input_pyramid)
@@ -442,15 +476,18 @@ class NCSNpp(nn.Module):
                     with span("ddgan.G.attn", dev):
                         h = modules[m_idx](h)
                     m_idx += 1
-                if self.progressive != "none":
-                    if i_level == num_resolutions - 1 or self.progressive == "output_skip":
+                if self.progressive == "output_skip":
+                    with span("ddgan.G.skip_out", dev):
                         pyramid_h = modules[m_idx + 1](F.silu(modules[m_idx](h)))
+                        pyramid = (pyramid_h if pyramid is None
+                                   else self.pyramid_upsample(pyramid) + pyramid_h)
+                        _skip_step("skip_out")
+                    m_idx += 2
+                elif self.progressive == "residual":
+                    if i_level == num_resolutions - 1:
+                        pyramid = modules[m_idx + 1](F.silu(modules[m_idx](h)))
                         m_idx += 2
-                        if pyramid is None:
-                            pyramid = pyramid_h
-                        else:  # output_skip below the top level
-                            pyramid = self.pyramid_upsample(pyramid) + pyramid_h
-                    else:  # residual below the top level
+                    else:
                         pyramid = self._skip_sum(modules[m_idx](pyramid), h)
                         m_idx += 1
                         h = pyramid

@@ -30,9 +30,15 @@ bf16 ulp, dW bf16-rounded on both sides, db against float64), and one
 bf16 train step of a small 256x256 model whose gated convs and their dx
 launch the kernel.
 
+Both kernels also at the shapes of the 1024² generator
+(`benchmark/configs/ffhq1024.json`): fir2x over 16-channel 1024² and
+32-channel 512² planes, pair_conv3x3 at 512² (C_in 64) and 256² (C_in 32
+and 96) at the sampler's batch of 8.
+
 The sampler's G forward as a captured CUDA graph (`diffusion/graphed.py`):
 `make_sampler` calls against `sample_from_model` on the bare net, bit for
-bit, images and generator states, at small 32² and 256² recipes' shapes;
+bit, images and generator states, at small 32² and 256² recipes' shapes
+and at the whole 1024² configuration (batch 2, the pyramids' step counts);
 an in-place weight load after the capture; the eager paths (train mode,
 grad, a profiler before the first capture); the graph's kernels in the
 profiler, by name and count as an eager call's; every generator option
@@ -49,6 +55,9 @@ from ddgan_torch.ops import fir2x, pair_conv, resample
 FIR = (1.0, 3.0, 3.0, 1.0)
 FIR_ASYM = (1.0, 2.0, 3.0, 4.0)
 SHAPES = [(3, 16, 8, 12), (2, 3, 38, 22), (1, 2, 70, 66), (5, 61, 8, 8), (1, 37, 4, 4)]
+# the 1024² generator's largest planes (`benchmark/configs/ffhq1024.json`):
+# 16 channels at 1024², 32 at 512²
+FFHQ_FIR_SHAPES = [(2, 16, 1024, 1024), (2, 32, 512, 512)]
 
 
 @pytest.fixture
@@ -71,7 +80,7 @@ def _randn(shape, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + FFHQ_FIR_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("fir", [FIR, FIR_ASYM], ids=["sym", "asym"])
 def test_kernel_matches_plain(cuda_device, shape, dtype, fir):
@@ -222,6 +231,9 @@ def test_resample_layer_dispatches_to_the_kernel(cuda_device):
 PAIR_PATH_SHAPES = [(16, 64, 256, 256), (16, 128, 256, 256), (16, 64, 128, 128),
                     (16, 128, 128, 128)]
 PAIR_EDGE_SHAPES = [(2, 64, 128, 128), (1, 34, 128, 128), (3, 2, 160, 160), (1, 96, 224, 224)]
+# the 1024² generator's gated convs at its sampler batch of 8: 64 -> 64 at
+# 512², and the 256² level's first conv (C_in 32) and last concat (C_in 96)
+FFHQ_PAIR_SHAPES = [(8, 64, 512, 512), (8, 32, 256, 256), (8, 96, 256, 256)]
 
 
 def _bf16_ulp(v: float) -> float:
@@ -239,7 +251,7 @@ def _pair_inputs(shape, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", PAIR_PATH_SHAPES + PAIR_EDGE_SHAPES)
+@pytest.mark.parametrize("shape", PAIR_PATH_SHAPES + PAIR_EDGE_SHAPES + FFHQ_PAIR_SHAPES)
 def test_pair_conv_matches_plain(cuda_device, shape):
     x, wt, b = _pair_inputs(shape, sum(shape), cuda_device)
     before = pair_conv.LAUNCHES["pair_conv3x3"]
@@ -473,13 +485,23 @@ def test_bf16_train_step_at_256_launches_the_kernels(cuda_device):
 # --------------------------------------------------------------------------
 # the sampler's G forward as a captured CUDA graph (`diffusion/graphed.py`)
 def _sampler_net(case: str, device):
-    """A small NCSN++ shaped like a recipe, with non-trivial weights, in eval
-    mode: "cifar" (32², the residual input pyramid of FIR convs, attention,
-    T=4) or "celeba" (256², nf 64, the skip pyramids: K2's gated convs and
-    K1 at 256², T=2)."""
+    """An NCSN++ shaped like a recipe, with non-trivial weights, in eval
+    mode: small "cifar" (32², the residual input pyramid of FIR convs,
+    attention, T=4) or "celeba" (256², nf 64, the skip pyramids: K2's gated
+    convs and K1 at 256², T=2), or "ffhq1024", the benchmark's 1024²
+    configuration whole at batch 2 (eight levels, both skip pyramids)."""
+    import json
+    from pathlib import Path
+
     from ddgan_torch.config import Config
     from ddgan_torch.models import NCSNpp
     from ddgan_torch.utils import randomize_parameters_
+
+    if case == "ffhq1024":
+        path = Path(__file__).resolve().parent.parent / "benchmark" / "configs" / "ffhq1024.json"
+        cfg = Config.from_dict(json.loads(path.read_text())["config"])
+        net = randomize_parameters_(NCSNpp.from_config(cfg), 3).to(device).eval()
+        return cfg, net, 2
 
     common = dict(num_channels=3, num_res_blocks=1, nz=16, z_emb_dim=32, n_mlp=2,
                   t_emb_dim=32, compute_dtype="bfloat16")
@@ -508,8 +530,10 @@ def _eager_call(cfg, net, batch, device, rng):
 
 
 def _tallies():
+    from ddgan_torch.models import ncsnpp
+
     return (dict(fir2x.LAUNCHES), {k: dict(v) for k, v in fir2x.CALLS.items()},
-            dict(pair_conv.LAUNCHES), dict(pair_conv.CALLS))
+            dict(pair_conv.LAUNCHES), dict(pair_conv.CALLS), dict(ncsnpp.SKIP_STEPS))
 
 
 def _tally_delta(before, after):
@@ -519,12 +543,12 @@ def _tally_delta(before, after):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["cifar", "celeba"])
+@pytest.mark.parametrize("case", ["cifar", "celeba", "ffhq1024"])
 def test_graphed_sampler_equals_eager_bit_for_bit(cuda_device, case):
     """Three `make_sampler` calls (one capture, then replays only) against
     `sample_from_model` on the bare net from the same generator state:
     images and generator states equal bit for bit, and the hand kernels'
-    tallies advance by what an eager call's do."""
+    and the pyramids' tallies advance by what an eager call's do."""
     from ddgan_torch.cli import test_cli
     from ddgan_torch.diffusion import graphed
 
@@ -547,8 +571,11 @@ def test_graphed_sampler_equals_eager_bit_for_bit(cuda_device, case):
     steps = 3 * cfg.num_timesteps
     assert graphed.CALLS == {"capture": 1, "replay": steps - 1, "eager": 0}
     assert sum(fir2x.LAUNCHES.values()) > 0
-    if case == "celeba":
+    if case != "cifar":
         assert _tally_delta(before, mid)[2]["pair_conv3x3"] > 0
+    if case == "ffhq1024":  # eight levels, seven transitions a forward
+        assert _tally_delta(before, mid)[4] == {"skip_out": 8 * cfg.num_timesteps,
+                                                "skip_in": 7 * cfg.num_timesteps}
 
 
 @pytest.mark.cuda

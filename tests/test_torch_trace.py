@@ -224,3 +224,139 @@ def test_lines_give_calls_and_times_per_unit_and_reset_clears():
     assert line.endswith("(in -); n 4")
     trace.reset()
     assert trace.summary() == {} and trace.lines(2) == []
+
+
+# --------------------------------------------------------------------------
+# G's output and input pyramids: their spans and counters
+def _skip_net():
+    """A tiny NCSN++ with both skip pyramids (three levels: 16², 8², 4²) and
+    non-trivial weights, in eval mode."""
+    from ddgan_torch.models import ncsnpp
+    from ddgan_torch.utils import randomize_parameters_
+
+    cfg = Config.from_dict(dict(
+        image_size=16, num_channels=3, num_channels_dae=8, ch_mult=[1, 2, 2],
+        num_res_blocks=1, attn_resolutions=[8], nz=4, z_emb_dim=8, n_mlp=1, dropout=0.0,
+        progressive="output_skip", progressive_input="input_skip", progressive_combine="sum"))
+    net = randomize_parameters_(models.NCSNpp.from_config(cfg), 2).eval()
+    g = torch.Generator().manual_seed(3)
+    inputs = (torch.randn(2, 3, 16, 16, generator=g), torch.tensor([0, 1]),
+              torch.randn(2, 4, generator=g))
+    ncsnpp.reset_skip_counts()
+    return net, inputs
+
+
+class _FakeGraph:
+    """Stands in for `torch.cuda.CUDAGraph` on the CPU: its capture runs the
+    forward eagerly, its replay runs nothing."""
+
+    def replay(self):
+        pass
+
+
+def test_pyramid_outputs_spans_and_counters_with_tracing_on_and_off():
+    from ddgan_torch.models import ncsnpp
+
+    net, inputs = _skip_net()
+    with torch.no_grad():
+        off = net(*inputs)
+        assert trace.summary() == {} and ncsnpp.SKIP_STEPS == {"skip_out": 3, "skip_in": 2}
+        with profile(activities=[ProfilerActivity.CPU]):
+            on = net(*inputs)
+    assert float(off.std()) > 0.05 and torch.equal(off, on)
+    assert ncsnpp.SKIP_STEPS == {"skip_out": 6, "skip_in": 4}
+    s = trace.summary()
+    # a step of the output pyramid at each level's way up, of the input
+    # pyramid at each transition on the way down
+    assert s["ddgan.G.skip_out"]["parents"] == {"ddgan.G.up16": 1, "ddgan.G.up8": 1,
+                                                "ddgan.G.up4": 1}
+    assert s["ddgan.G.skip_in"]["parents"] == {"ddgan.G.down16": 1, "ddgan.G.down8": 1}
+    assert s["ddgan.G.skip_out"]["counters"] == {"ncsnpp.skip_out": 3,
+                                                 "fir2x.up2x.forward": 2}
+    assert s["ddgan.G.skip_in"]["counters"] == {"ncsnpp.skip_in": 2,
+                                                "fir2x.down2x.forward": 2}
+
+
+def test_pyramid_counters_are_taken_out_of_a_capture_and_added_at_each_replay(monkeypatch):
+    import contextlib
+
+    from ddgan_torch.diffusion import graphed
+    from ddgan_torch.models import ncsnpp
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **k: contextlib.nullcontext())
+    net, inputs = _skip_net()
+    g = graphed.GraphedForward(net)
+    with torch.no_grad():
+        captured = g._capture(*inputs)
+        assert ncsnpp.SKIP_STEPS == {"skip_out": 0, "skip_in": 0}
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                with trace.span("ddgan.sample.G"):
+                    g._replay(captured, *inputs)
+    assert ncsnpp.SKIP_STEPS == {"skip_out": 6, "skip_in": 4}
+    s = trace.summary()
+    assert {k: v for k, v in s["ddgan.sample.G"]["counters"].items()
+            if k.startswith("ncsnpp.")} == {"ncsnpp.skip_out": 6, "ncsnpp.skip_in": 4}
+    assert "ddgan.G.skip_out" not in s  # a replay runs no Python of G
+
+
+def test_registered_tallies_are_taken_out_of_a_capture_and_added_at_each_replay(monkeypatch):
+    """A tally that a module hands in by `register_tallies` is counted as
+    the hand kernels' are: nothing at the capture, each forward's steps
+    and span counter at every replay."""
+    import contextlib
+
+    from ddgan_torch.diffusion import graphed
+
+    steps = {"step": 0}
+
+    class Counting(torch.nn.Module):
+        def forward(self, x, t, z):
+            steps["step"] += 2
+            trace.count("test.step", 2)
+            return x + 1
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda *a, **k: contextlib.nullcontext())
+    monkeypatch.setattr(graphed, "_SOURCES", list(graphed._SOURCES))
+    graphed.register_tallies(lambda: [(steps, "step", "test.step")])
+    g = graphed.GraphedForward(Counting().eval())
+    inputs = (torch.zeros(2, 3), torch.tensor([0, 1]), torch.zeros(2, 4))
+    with torch.no_grad():
+        captured = g._capture(*inputs)
+        assert captured.tallies == ((len(graphed._tallies()) - 1, 2),) and steps["step"] == 0
+        with profile(activities=[ProfilerActivity.CPU]):
+            with trace.span("ddgan.sample.G"):
+                for _ in range(3):
+                    g._replay(captured, *inputs)
+    assert steps["step"] == 6
+    assert trace.summary()["ddgan.sample.G"]["counters"]["test.step"] == 6
+
+
+def test_graphed_forward_imports_no_model():
+    """The sampler's graph wrapper takes any `GeneratorFn`: models hand it
+    their tallies, it imports none of them."""
+    import subprocess
+    import sys
+
+    code = ("import sys, ddgan_torch.diffusion.graphed; "
+            "print(sorted(m for m in sys.modules if m.startswith('ddgan_torch.models')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         check=True, cwd=Path(__file__).resolve().parent.parent)
+    assert out.stdout.strip() == "[]"
+
+
+def test_generators_without_skip_pyramids_record_no_pyramid_spans():
+    from ddgan_torch.models import ncsnpp
+
+    residual = Config.from_dict({**CFG.to_dict(), "progressive": "residual"})
+    for cfg in (CFG, residual):
+        net = models.NCSNpp.from_config(cfg).eval()
+        ncsnpp.reset_skip_counts()
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+            net(torch.randn(2, 3, 16, 16), torch.tensor([0, 1]), torch.randn(2, CFG.nz))
+        s = trace.summary()
+        assert not {"ddgan.G.skip_out", "ddgan.G.skip_in"} & set(s)
+        assert ncsnpp.SKIP_STEPS == {"skip_out": 0, "skip_in": 0}
+        trace.reset()
